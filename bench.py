@@ -10,12 +10,13 @@ chain, so no work can be elided, pipelined, or lazily skipped; one host sync
 at the end. This is a strict serialized-latency lower bound on throughput
 (real serving pipelines overlap batches and does better).
 
-Set SCANN_TPU_BENCH_FULL=1 to also run the GloVe-scale configuration
-(1.18M x 100d LUT16 full sweep + exact re-rank, recall reported) on stderr.
+Runs on an NVIDIA GPU only (exit 2 elsewhere); the JSON line names the card
+and its power limit. Any failing row fails the run.
 """
 
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -29,9 +30,8 @@ def log(*a):
 
 
 def scan_time(make_scan, iters=50, rounds=4):
-    """Device-resident chained-scan timing — ONE shared implementation
-    (scann_tpu/utils/benchmarking) used by this driver artifact and every
-    benches/ script, so methodology fixes reach all published numbers."""
+    """Device-resident chained-scan timing — the ONE shared implementation
+    in scann_tpu/utils/benchmarking."""
     from scann_tpu.utils.benchmarking import scan_time as _scan_time
 
     return _scan_time(make_scan, iters, rounds)
@@ -40,6 +40,16 @@ def scan_time(make_scan, iters=50, rounds=4):
 def main():
     import jax
     import jax.numpy as jnp
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        log(f"bench.py measures a GPU; JAX found platform {dev.platform!r}")
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    log(f"card: {card}")
 
     from scann_tpu.data.dataset import DenseDataset
     from scann_tpu.models.brute_force import BruteForceSearcher, _search_kernel
@@ -58,7 +68,7 @@ def main():
     gt = np.argsort(((q_np[:, None, :] - db_np[None, :, :]) ** 2).sum(-1), axis=1)[:, :k]
     recall = np.mean([len(set(a) & set(g)) / k for a, g in zip(idx, gt)])
     if recall < 0.999:
-        log(f"WARNING: brute-force recall {recall} < 1.0")
+        raise RuntimeError(f"exact brute-force recall {recall} < 0.999")
 
     db, norms, n_valid = s._device_state()
 
@@ -92,36 +102,28 @@ def main():
     block_sweep = _run_block_sweep_default(log)
     adversarial = None
     if os.environ.get("SCANN_TPU_BENCH_SKIP_ADV") != "1":
-        try:
-            adversarial = _run_adversarial_default(log)
-        except Exception as e:  # pragma: no cover - keep the artifact whole
-            log(f"adversarial row failed: {e!r}")
-            adversarial = {"error": repr(e)}
-
-    if os.environ.get("SCANN_TPU_BENCH_FULL") == "1":
-        _run_glove_scale(log)
+        adversarial = _run_adversarial_default(log)
 
     print(json.dumps({
         "metric": "exact_brute_force_qps_10k_64d_k10_saturating_batch",
         "value": round(qps, 1),
         "unit": "QPS",
         "vs_baseline": round(qps / BASELINE_BATCHED_QPS, 3),
-        # driver-verified flagship row (VERDICT r2 #1): the full tree-x-AH
-        # pipeline (partition select -> residual LUT16 leaf scoring ->
-        # exact re-rank) at 200k x 100d, recall measured on the SAME
-        # queries that are timed
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices()), "nvidia_smi": card},
+        # the full tree-x-AH pipeline (partition select -> residual LUT16
+        # leaf scoring -> exact re-rank) at 200k x 100d, recall measured on
+        # the SAME queries that are timed
         "tree_ah_200k_100d": tree_ah,
-        # driver-verified GloVe-scale flagship: bf16 block-min sweep +
-        # exact re-rank at 1.18M x 100d (the measured-best single-chip
-        # architecture at this scale, BENCH_NOTES "GloVe-scale")
+        # bf16 block-min sweep + exact re-rank at 1.18M x 100d
         "block_sweep_1m18_100d": block_sweep,
-        # driver-verified HARD case (VERDICT r3 next #3): the adversarial
-        # generator (Zipf cluster mass, anisotropic covariance, correlated
-        # dims, heavy-tailed norms) at 1.18M x 100d — the regime where
-        # tree-AH recall collapses without SOAR (BENCH_NOTES adversarial
-        # section); certifies the sweep's skew-immunity and SOAR's recall
+        # the adversarial generator (Zipf cluster mass, anisotropic
+        # covariance, correlated dims, heavy-tailed norms) at 1.18M x 100d
+        # — the regime where tree-AH recall collapses without SOAR: the
+        # sweep (skew-immune) and SOAR tree-AH rows
         "adversarial_1m18": adversarial,
     }))
+    return 0
 
 
 def _clustered(key, n, d, n_clusters, b, spread=2.5):
@@ -158,17 +160,11 @@ def _run_tree_ah_default(log):
     from scann_tpu.models.tree_x_hybrid import (
         TreeXHybridConfig,
         TreeXHybridSearcher,
-        tree_ah_grouped_kernel,
         tree_ah_kernel,
     )
     from scann_tpu.ops.distances import DistanceMeasure
 
     N, D, K, B = 200_000, 100, 10, 1024
-    # measured pareto point (round-3 (p, pre_k) study, BENCH_NOTES):
-    # p=10/pre_k=100 holds recall@10 = 0.9998 at this scale while the
-    # latency-bound rerank row gather does half the rows and leaf scoring
-    # half the partitions (p=20/pre_k=200 measured 1.0000 @ 65.9k QPS,
-    # p=10/pre_k=100 0.9998 @ 114.9k)
     P, PRE_K = 10, 100
     db_dev, q_dev = _clustered(jax.random.PRNGKey(42), N, D, 2000, B)
     ds = DenseDataset(np.asarray(db_dev))
@@ -190,13 +186,11 @@ def _run_tree_ah_default(log):
             num_leaves_to_search=P, pre_reordering_num_neighbors=PRE_K))
     recall = _recall_at_k(idx, gt, K)
 
-    codes_rows, codes_csr, csr_offsets, part_sizes, perm, l_cap = s._csr_state()
+    codes, csr_offsets, part_sizes, perm, l_cap = s._csr_state()
     cent = s.partitioner.centers_device()
     cb = s.codebook.centroids_device()
-    grouped = s._use_grouped_pallas()
     # serve through the searcher's own resolved layout (the id-embedded
-    # CSR store at mult=1: +10-15% QPS at identical recall, BENCH_NOTES
-    # round-5 "Id-embedded CSR rerank store")
+    # CSR store at mult=1)
     csr_store = s._rerank_layout() == "csr"
     if csr_store:
         db_d, n_valid = s._csr_store_state()
@@ -206,21 +200,13 @@ def _run_tree_ah_default(log):
     kw = dict(p=P, pre_k=PRE_K, k=K, l_cap=l_cap, use_residuals=True,
               measure=DistanceMeasure.SQUARED_L2, multiplicity=1,
               approx_select_min=cfg.approx_selection_min_partitions,
-              csr_store=csr_store)
-    if grouped:
-        kern = tree_ah_grouped_kernel
-        codes_arg = codes_csr
-        kw.update(q_cap=s.effective_q_cap(B, P), l_tile=cfg.score_l_tile,
-                  packed=s._pack_codes())
-    else:
-        kern = tree_ah_kernel
-        codes_arg = codes_rows
+              csr_store=csr_store, scorer=s._leaf_scorer())
 
     def make_scan(iters):
         @jax.jit
         def run(qq, dbx, nx, c, codes, off, sz, pm, cbx):
             def body(acc, i):
-                vals, _ = kern(
+                vals, _ = tree_ah_kernel(
                     dbx, nx, c, codes, off, sz, pm, cbx,
                     qq + acc * 1e-20 + i * 1e-6,
                     jnp.int32(n_valid), None,
@@ -229,13 +215,12 @@ def _run_tree_ah_default(log):
             acc, _ = jax.lax.scan(body, jnp.float32(0),
                                   jnp.arange(iters, dtype=jnp.float32))
             return acc
-        return lambda: run(q_dev, db_d, norms, cent, codes_arg,
+        return lambda: run(q_dev, db_d, norms, cent, codes,
                            csr_offsets, part_sizes, perm, cb)
 
     dt = scan_time(make_scan, iters=8, rounds=3)
     qps = B / dt
-    kernel_name = ("grouped-pallas-int4" if grouped and s._pack_codes()
-                   else "grouped-pallas" if grouped else "xla")
+    kernel_name = s._leaf_scorer()
     log(f"tree-AH 200kx100d p={P} pre_k={PRE_K} B={B}: "
         f"recall@10={recall:.4f} {dt*1e3:.2f} ms/batch -> {qps:,.0f} QPS "
         f"(kernel={kernel_name})")
@@ -245,7 +230,7 @@ def _run_tree_ah_default(log):
         "build_s": round(build_s, 1),
         "config": f"parts=1000 p={P} pre_k={PRE_K} codes=16 subspaces=50",
         "kernel": kernel_name,
-        "code_slab_bytes": int(codes_csr.size),
+        "code_slab_bytes": int(codes.size),
     }
 
 
@@ -263,10 +248,6 @@ def _run_block_sweep_default(log):
     from scann_tpu.ops.sweep_pallas import sweep_search_kernel
 
     N, D, K, B = 1_180_000, 100, 10, 1024
-    # measured pareto point (round-3 pre_k study, BENCH_NOTES): recall@10
-    # is identical to pre_k=100 on this workload (0.9982) while the rerank
-    # row gather — the pipeline's latency-bound stage at ~31 ns/row — does
-    # 36% fewer rows
     PRE_K = 64
     db_dev, q_dev = _clustered(jax.random.PRNGKey(7), N, D, 5000, B)
     ds = DenseDataset(np.asarray(db_dev))
@@ -315,11 +296,10 @@ def _run_block_sweep_default(log):
 
 
 def _run_adversarial_default(log):
-    """Adversarial 1.18M x 100d rows for the driver artifact: the bf16
-    block-min sweep (skew-immune) and the SOAR tree-×-AH build at the
-    measured recall>=0.99 pareto point (p=30, pre_k=300; BENCH_NOTES
-    'SOAR spilling on the adversarial pareto'). Exact GT on the timed
-    queries; chained on-device timing like every other row."""
+    """Adversarial 1.18M x 100d rows: the bf16 block-min sweep
+    (skew-immune) and the SOAR tree-×-AH build at (p=30, pre_k=300). Exact
+    GT on the timed queries; chained on-device timing like every other
+    row."""
     import jax
     import jax.numpy as jnp
 
@@ -331,7 +311,6 @@ def _run_adversarial_default(log):
     from scann_tpu.models.tree_x_hybrid import (
         TreeXHybridConfig,
         TreeXHybridSearcher,
-        tree_ah_grouped_kernel,
         tree_ah_kernel,
     )
     from scann_tpu.ops.distances import DistanceMeasure
@@ -401,27 +380,20 @@ def _run_adversarial_default(log):
     rec_tree = _recall_at_k(idx, gt, K)
 
     db_d, norms, n_valid = s._device_state()
-    codes_rows, codes_csr, csr_offsets, part_sizes, perm, l_cap = \
-        s._csr_state()
+    codes, csr_offsets, part_sizes, perm, l_cap = s._csr_state()
     cent = s.partitioner.centers_device()
     cb = s.codebook.centroids_device()
-    grouped = s._use_grouped_pallas()
     mult = s.partitioner.tokenization.max_multiplicity
     kw = dict(p=P, pre_k=PRE_K, k=K, l_cap=l_cap, use_residuals=True,
               measure=DistanceMeasure.SQUARED_L2, multiplicity=mult,
-              approx_select_min=cfg.approx_selection_min_partitions)
-    if grouped:
-        kern, codes_arg = tree_ah_grouped_kernel, codes_csr
-        kw.update(q_cap=s.effective_q_cap(B, P), l_tile=cfg.score_l_tile,
-                  packed=s._pack_codes())
-    else:
-        kern, codes_arg = tree_ah_kernel, codes_rows
+              approx_select_min=cfg.approx_selection_min_partitions,
+              scorer=s._leaf_scorer())
 
     def make_scan_t(iters):
         @jax.jit
         def run(qq, dbx, nx, c, codes, off, sz, pm, cbx):
             def body(acc, i):
-                vals, _ = kern(dbx, nx, c, codes, off, sz, pm, cbx,
+                vals, _ = tree_ah_kernel(dbx, nx, c, codes, off, sz, pm, cbx,
                                qq + acc * 1e-20 + i * 1e-6,
                                jnp.int32(n_valid), None,
                                jnp.float32(np.inf), jnp.float32(np.inf), **kw)
@@ -429,7 +401,7 @@ def _run_adversarial_default(log):
             acc, _ = jax.lax.scan(body, jnp.float32(0),
                                   jnp.arange(iters, dtype=jnp.float32))
             return acc
-        return lambda: run(q_dev, db_d, norms, cent, codes_arg,
+        return lambda: run(q_dev, db_d, norms, cent, codes,
                            csr_offsets, part_sizes, perm, cb)
 
     dt = scan_time(make_scan_t, iters=6, rounds=3)
@@ -441,182 +413,12 @@ def _run_adversarial_default(log):
         "build_s": round(tree_build, 1),
         "config": f"parts=2000 SOAR p={P} pre_k={PRE_K} codes=16 "
                   "subspaces=50",
-        "kernel": ("grouped-pallas-int4" if grouped and s._pack_codes()
-                   else "grouped-pallas" if grouped else "xla"),
+        "kernel": s._leaf_scorer(),
     }
-    del db_d, norms, codes_csr, s
+    del db_d, norms, codes, s
     jax.clear_caches()
     return out
 
 
-def _run_glove_scale(log):
-    """1.18M x 100d fused LUT16 sweep + exact re-rank (stderr report)."""
-    import jax
-    import jax.numpy as jnp
-
-    from scann_tpu import BruteForceSearcher, DenseDataset
-    from scann_tpu.hashes import AsymmetricHasher, AsymmetricHasherConfig
-    from scann_tpu.hashes.hasher import ah_search_fused_kernel
-    from scann_tpu.ops.distances import DistanceMeasure, squared_norms
-
-    N, D = 1_180_000, 100
-    key = jax.random.PRNGKey(42)
-    k1, k2, k3, k4, k5 = jax.random.split(key, 5)
-    NC = 5000
-    B_MAX = 1024
-    centers = jax.random.normal(k1, (NC, D)) * 2.5
-    a = jax.random.randint(k2, (N,), 0, NC)
-    db_dev = jnp.take(centers, a, axis=0) + jax.random.normal(k3, (N, D))
-    aq = jax.random.randint(k4, (B_MAX,), 0, NC)
-    q_all = jnp.take(centers, aq, axis=0) + jax.random.normal(k5, (B_MAX, D))
-    db = np.asarray(db_dev)
-    q_np = np.asarray(q_all)
-    ds = DenseDataset(db)
-
-    t0 = time.perf_counter()
-    h = AsymmetricHasher(AsymmetricHasherConfig(
-        num_codes=16, num_subspaces=50, seed=42, max_iterations=12,
-        training_sample_size=100_000)).build(ds)
-    log(f"glove-scale build: {time.perf_counter()-t0:.1f}s")
-
-    # ground truth over ALL timed queries: recall below is computed on the
-    # exact query slice each batch size runs (advisor r2 finding)
-    gt, _ = BruteForceSearcher(ds).search_batched_arrays(q_np, 10)
-    dbd, _ = ds.device()
-    norms = jax.jit(squared_norms)(dbd)
-    cent = h.codebook.centroids_device()
-    packed = h._device_codes_packed_t()
-    kw = dict(pre_k=300, k=10, measure=DistanceMeasure.SQUARED_L2,
-              r=h.FUSED_R, tile_n=h.FUSED_TILE_N)
-
-    for b in (128, 1024):
-        q_dev = q_all[:b]
-        _, i0 = ah_search_fused_kernel(cent, packed, dbd, norms,
-                                       jnp.int32(h._n), q_dev, **kw)
-        recall = _recall_at_k(np.asarray(i0), gt[:b])
-
-        def make_scan(iters):
-            @jax.jit
-            def run(qq, c, codes, dbx, nx):
-                def body(acc, i):
-                    vals, _ = ah_search_fused_kernel(
-                        c, codes, dbx, nx, jnp.int32(h._n),
-                        qq + acc * 1e-20 + i * 1e-6, **kw)
-                    return acc + jnp.where(jnp.isfinite(vals), vals, 0.0).sum(), None
-                acc, _ = jax.lax.scan(body, jnp.float32(0),
-                                      jnp.arange(iters, dtype=jnp.float32))
-                return acc
-            return lambda: run(q_dev, cent, packed, dbd, norms)
-
-        dt = scan_time(make_scan, iters=16, rounds=3)
-        log(f"glove-scale 1.18Mx100d fused-sweep+rerank B={b}: "
-            f"recall@10={recall:.4f} {dt*1e3:.2f} ms/batch -> {b/dt:,.0f} QPS")
-
-    _run_block_sweep(log, ds, q_np, gt, N)
-    _run_tree_ah(log, ds, q_all, q_np, gt)
-
-
-def _run_block_sweep(log, ds, q_np, gt, n):
-    """bf16 block-min sweep + exact re-rank — the flagship serving path."""
-    import jax
-    import jax.numpy as jnp
-
-    from scann_tpu.models.block_sweep import BlockSweepSearcher
-    from scann_tpu.ops.distances import DistanceMeasure
-    from scann_tpu.ops.sweep_pallas import sweep_search_kernel
-
-    t0 = time.perf_counter()
-    s = BlockSweepSearcher(ds)
-    aug, dbd, norms, n_valid = s._device_state()
-    log(f"block-sweep build (bf16 augmented copy): {time.perf_counter()-t0:.1f}s")
-
-    for b in (128, 1024):
-        q_dev = jnp.asarray(q_np[:b])
-        idx, _ = s.search_batched_arrays(q_np[:b], 10)
-        recall = _recall_at_k(idx, gt[:b])
-
-        def make_scan(iters):
-            @jax.jit
-            def run(qq, augx, dbx, nx):
-                def body(acc, i):
-                    vals, _ = sweep_search_kernel(
-                        augx, dbx, nx, jnp.int32(n),
-                        qq + acc * 1e-20 + i * 1e-6,
-                        pre_k=100, k=10, measure=DistanceMeasure.SQUARED_L2)
-                    return acc + jnp.where(jnp.isfinite(vals), vals, 0.0).sum(), None
-                acc, _ = jax.lax.scan(body, jnp.float32(0),
-                                      jnp.arange(iters, dtype=jnp.float32))
-                return acc
-            return lambda: run(q_dev, aug, dbd, norms)
-
-        dt = scan_time(make_scan, iters=16, rounds=3)
-        log(f"glove-scale 1.18Mx100d block-sweep+rerank B={b}: "
-            f"recall@10={recall:.4f} {dt*1e3:.2f} ms/batch -> {b/dt:,.0f} QPS")
-
-
-def _run_tree_ah(log, ds, q_all, q_np, gt):
-    """Tree-×-AH full pipeline (grouped-MXU leaf scoring) at 1.18M."""
-    import jax
-    import jax.numpy as jnp
-
-    from scann_tpu.hashes.hasher import AsymmetricHasherConfig
-    from scann_tpu.models.searcher import SearchParameters
-    from scann_tpu.models.tree_x_hybrid import (
-        TreeXHybridConfig,
-        TreeXHybridSearcher,
-        tree_ah_grouped_kernel,
-    )
-    from scann_tpu.ops.distances import DistanceMeasure
-
-    t0 = time.perf_counter()
-    cfg = TreeXHybridConfig(
-        num_partitions=2000, partitions_to_search=10,
-        hash_config=AsymmetricHasherConfig(
-            num_codes=16, num_subspaces=50, seed=42, max_iterations=12,
-            training_sample_size=100_000))
-    s = TreeXHybridSearcher(cfg).build(ds)
-    log(f"tree-AH build: {time.perf_counter()-t0:.1f}s")
-
-    db_d, norms, n_valid = s._device_state()
-    _, codes_csr, csr_offsets, part_sizes, perm, l_cap = s._csr_state()
-    cent = s.partitioner.centers_device()
-    cb = s.codebook.centroids_device()
-
-    for p, pre_k in ((10, 150), (20, 200)):
-        kw = dict(p=p, pre_k=pre_k, k=10, l_cap=l_cap, use_residuals=True,
-                  measure=DistanceMeasure.SQUARED_L2, multiplicity=1,
-                  approx_select_min=cfg.approx_selection_min_partitions,
-                  l_tile=cfg.score_l_tile, packed=s._pack_codes())
-        for b in (128, 1024):
-            kw["q_cap"] = s.effective_q_cap(b, p)
-            q_dev = q_all[:b]
-            idx, _ = s.search_batched_arrays(
-                q_np[:b], 10,
-                params=SearchParameters(num_leaves_to_search=p,
-                                        pre_reordering_num_neighbors=pre_k))
-            recall = _recall_at_k(idx, gt[:b])
-
-            def make_scan(iters):
-                @jax.jit
-                def run(qq, dbx, nx, c, codes, off, sz, pm, cbx):
-                    def body(acc, i):
-                        vals, _ = tree_ah_grouped_kernel(
-                            dbx, nx, c, codes, off, sz, pm, cbx,
-                            qq + acc * 1e-20 + i * 1e-6,
-                            jnp.int32(n_valid), None,
-                            jnp.float32(np.inf), jnp.float32(np.inf), **kw)
-                        return acc + jnp.where(
-                            jnp.isfinite(vals), vals, 0.0).sum(), None
-                    acc, _ = jax.lax.scan(body, jnp.float32(0),
-                                          jnp.arange(iters, dtype=jnp.float32))
-                    return acc
-                return lambda: run(q_dev, db_d, norms, cent, codes_csr,
-                                   csr_offsets, part_sizes, perm, cb)
-
-            dt = scan_time(make_scan, iters=8, rounds=3)
-            log(f"glove-scale 1.18Mx100d tree-AH p={p} pre_k={pre_k} B={b}: "
-                f"recall@10={recall:.4f} {dt*1e3:.2f} ms/batch -> {b/dt:,.0f} QPS")
-
-
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -4,7 +4,7 @@ The reference requires an explicit mode everywhere and leaves every knob to
 the user — its own published defaults reach recall 0.23-0.41
 (reference: README.md:713-716, src/scann.rs:60-103). Here one call:
 
-  1. picks the architecture from dataset scale via the per-chip profile
+  1. picks the architecture from dataset scale via the per-device profile
      (utils/chip_profile.py — override with SCANN_TPU_CHIP_PROFILE, or
      re-measure the crossovers with ``calibrate()``);
   2. measures cluster-mass skew + norm spread on a sample and sets the

@@ -1,10 +1,9 @@
-"""Serving past the f32 HBM budget: low-precision rerank copies.
+"""Serving past the f32 memory budget: low-precision rerank copies.
 
 The exact-rerank database copy is the dominant serving allocation of every
-re-ranking searcher; past ~12M x 100d the padded f32 copy no longer fits a
-16 GB chip alongside the index (measured: the 20M x 100d f32 serving
-program needs 21.31G vs 15.75G HBM — docs/DESIGN.md "The 20M lesson").
-`rerank_dtype` stores that copy as bf16 (half, ~0.5pp recall@10) or
+re-ranking searcher; past the device profile's ``f32_rerank_max_bytes``
+the f32 copy no longer fits beside the index (docs/DESIGN.md "Device memory
+at scale"). `rerank_dtype` stores that copy as bf16 (half, ~0.5pp recall@10) or
 calibrated int8 (quarter — the reference declares quantized reordering at
 config.rs:290-318 but never implements it); `Scann.auto()` flips to bf16
 automatically past the budget, and `DenseDataset.drop_device_cache()`

@@ -3,7 +3,7 @@
 - anisotropic PQ training (Guo et al. 2020) via ``anisotropic_threshold``
 - SOAR secondary assignments (Sun et al. 2023) via ``with_soar()``
 
-Both are TPU extensions beyond the reference (which trains plain
+Both are extensions beyond the reference (which trains plain
 reconstruction-loss PQ and never implements spilling). Run:
 
     PYTHONPATH=. python examples/mips_avq_soar.py

@@ -1,4 +1,4 @@
-"""scann_tpu — a TPU-native approximate-nearest-neighbor index & query engine.
+"""scann_tpu — an approximate-nearest-neighbor index & query engine in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capability surface of the Rust
 ScaNN port (reference: sunbains/scann-rust). The design is arrays + pure
@@ -6,36 +6,45 @@ functions: an *index* is a pytree of device arrays (database tiles, centroids,
 codebooks, packed PQ codes, CSR partition tables, norms) plus a small host-side
 metadata object; *searchers* are jit-compiled functions
 ``(index, query_batch) -> (indices, distances)``; *builders* are jit-compiled
-training programs (k-means, PQ codebook training) that run on the TPU.
+training programs (k-means, PQ codebook training) that run on the device.
 
 Key departures from the reference (reference: src/lib.rs:1-135):
-  - Batched distance computation is an MXU matmul + fused ``lax.top_k``
+  - Batched distance computation is a matrix product + fused ``lax.top_k``
     instead of AVX2 one-to-many loops (reference: src/simd/x86.rs).
-  - LUT16 asymmetric-hash scoring is a one-hot-matmul / Pallas kernel with the
-    per-query tables resident in VMEM (reference: src/hashes/lut16_simd.rs).
+  - LUT16 asymmetric-hash scoring is a one-hot matrix product, grouped by
+    partition for tree-×-AH (reference: src/hashes/lut16_simd.rs).
   - Thread-level parallelism (rayon) is replaced by the query-batch dimension
-    and ``shard_map`` database sharding over a TPU mesh
+    and ``shard_map`` database sharding over a device mesh
     (reference: src/utils/parallel.rs).
+
+Runs on an NVIDIA GPU (hand-written kernels where they won their
+measurement, see PERF.md) or on the CPU (plain jax.numpy formulations, for
+tests); ``types.platform()`` is the one dispatch.
 """
 
 import os as _os
 
 import jax as _jax
 
-# XLA compiles on the host CPU; in constrained containers that is the single
-# most expensive part of index builds. A persistent compilation cache makes
-# every program compile once per machine instead of once per process.
-_cache_dir = _os.environ.get(
-    "SCANN_TPU_COMPILE_CACHE",
-    _os.path.join(_os.path.expanduser("~"), ".cache", "scann_tpu_xla"),
-)
-if _cache_dir and _cache_dir != "0":
-    try:
-        _os.makedirs(_cache_dir, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+
+def compile_cache_dir():
+    """Where this package keeps XLA's persistent compilation cache, or None
+    when it sets none: a set ``JAX_COMPILATION_CACHE_DIR`` is JAX's own and
+    wins; ``SCANN_TPU_COMPILE_CACHE=0`` opts out (the tests do); otherwise a
+    fixed path inside the checkout, ``<repo>/.jax_cache`` (a fixed path,
+    because the path is part of the cache's key)."""
+    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    if _os.environ.get("SCANN_TPU_COMPILE_CACHE") == "0":
+        return None
+    return _os.path.join(_os.path.dirname(_os.path.dirname(
+        _os.path.abspath(__file__))), ".jax_cache")
+
+
+_cache_dir = compile_cache_dir()
+if _cache_dir is not None:
+    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
+    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from scann_tpu.errors import ErrorCode, ScannError
 from scann_tpu.config import (

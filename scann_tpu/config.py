@@ -80,15 +80,15 @@ class BruteForceConfig(_JsonMixin):
 
     scalar_quantization: bool = False
     quantization_bits: int = 0
-    # TPU extension: bf16 block-min sweep + exact re-rank — the flagship
-    # HBM-resident serving path (models/block_sweep.py); approximate
+    # extension: bf16 block-min sweep + exact re-rank — the flagship
+    # device-resident serving path (models/block_sweep.py); approximate
     # (recall ~0.998 at pre-reorder depth 100), not exact brute force
     block_sweep: bool = False
     block_sweep_pre_k: int = 100
-    # dtype of the streamed sweep copy: "bfloat16" or "int8" (half the HBM
-    # stream -> ~1.6x QPS at low batch; see BlockSweepConfig.sweep_dtype)
+    # dtype of the streamed sweep copy: "bfloat16" or "int8" (half the
+    # bytes streamed; see BlockSweepConfig.sweep_dtype)
     block_sweep_dtype: str = "bfloat16"
-    # keep the TWO smallest per block (tournament kernel): removes the
+    # keep the TWO smallest per block: removes the
     # one-candidate-per-block collision ceiling — needed for recall
     # targets >= 0.99 on near-duplicate-heavy data
     block_sweep_top2: bool = False
@@ -119,13 +119,13 @@ class PartitioningConfig(_JsonMixin):
     num_levels: int = 1
     spilling: bool = False
     spilling_threshold: float = 0.0
-    # TPU extension: "soar" secondary assignments (see TreePartitionerConfig)
+    # extension: "soar" secondary assignments (see TreePartitionerConfig)
     spilling_mode: str = "distance"
     soar_lambda: float = 1.0
-    # TPU extension: cap on training sample size; the reference trains on the
+    # extension: cap on training sample size; the reference trains on the
     # full dataset, which is also the default here (None).
     training_sample_size: Optional[int] = None
-    # TPU extension: partition balance cap ("auto" = 1.5x mean, None = off)
+    # extension: partition balance cap ("auto" = 1.5x mean, None = off)
     # and the hard-cap straggler split — skewed partitions directly cost
     # every query l_cap padding in the leaf-scoring kernels (see
     # TreePartitionerConfig)
@@ -161,7 +161,7 @@ class HashConfig(_JsonMixin):
     num_blocks: int = 16
     lut_format: LutFormat = LutFormat.INT8
     training_sample_size: int = 100_000
-    # TPU extension (no reference counterpart): score-aware anisotropic
+    # extension (no reference counterpart): score-aware anisotropic
     # codebook training (Guo et al. 2020, hashes/avq.py); e.g. 0.2 for
     # MIPS/cosine workloads, None = plain reconstruction-loss PQ
     anisotropic_threshold: Optional[float] = None
@@ -194,8 +194,8 @@ class ExactReorderingConfig(_JsonMixin):
     num_candidates: int = 100
     quantized: bool = False
     # dtype of the device copy re-ranking gathers from: "float32",
-    # "bfloat16" (half HBM, ~0.5pp recall@10), or "int8" (quarter HBM;
-    # selected implicitly by quantized=True). TPU extension: the reference
+    # "bfloat16" (half the memory, small recall cost), or "int8" (quarter;
+    # selected implicitly by quantized=True). Extension: the reference
     # declares quantized reordering (config.rs:290-318) but re-ranks f32.
     rerank_dtype: str = "float32"
 

@@ -2,8 +2,8 @@
 
 ``DenseDataset`` replaces the reference's 64-byte-aligned strided flat storage
 (reference: src/data_format/dataset.rs:46-303) with a host numpy staging array
-plus a cached HBM-resident device array padded along N to the f32 sublane
-multiple; padded rows are masked out of every scoring program via the valid
+plus a cached device-resident array padded along N to a multiple of 8;
+padded rows are masked out of every scoring program via the valid
 count. ``SparseDataset`` mirrors the vec-of-vecs sparse container
 (reference: src/data_format/dataset.rs:306-427).
 
@@ -205,7 +205,7 @@ class DenseDataset:
         """Free the cached device array (host data stays). Used by serving
         setups that re-rank from a lower-precision copy (e.g. tree-AH with
         ``rerank_dtype='bfloat16'``) and no longer need the f32 HBM copy the
-        build used — at 20M x 100d that is 8 GB of a 16 GB chip."""
+        build used — 8 GB at 20M x 100d."""
         self._device_cache = None
 
     def memory_usage_bytes(self) -> int:

@@ -1,7 +1,7 @@
 """Anisotropic vector quantization — score-aware PQ training for MIPS.
 
-TPU extension beyond the reference (no counterpart anywhere under
-/root/reference — the reference trains plain reconstruction-loss k-means
+An extension beyond the reference (no counterpart anywhere in the
+reference — it trains plain reconstruction-loss k-means
 per subspace, src/hashes/codebook.rs:146-202). Implements the anisotropic
 loss of Guo et al., "Accelerating Large-Scale Inference with Anisotropic
 Vector Quantization" (ICML 2020): quantization error parallel to the
@@ -22,7 +22,7 @@ Training alternates two jit-compiled device programs:
   parallel term couples subspaces (<r, x_hat> = sum_s <r_s, x_hat_s>), so
   codes are updated one subspace at a time inside a ``lax.scan`` that
   carries the running parallel-residual dot t = <r, x_hat>; each step is a
-  batched [N, C] einsum + argmin (MXU-friendly, static shapes).
+  batched [N, C] einsum + argmin (matmul-shaped, static shapes).
 * **centroid update** — closed form.  Setting the gradient of the summed
   loss to zero gives, per (subspace, code) with assigned points I:
 

@@ -26,7 +26,7 @@ from scann_tpu.trees.kmeans import KMeans, KMeansConfig, KMeansInit
 class CodebookConfig:
     """(reference: src/hashes/codebook.rs:119-144).
 
-    ``anisotropic_threshold`` (TPU extension, no reference counterpart):
+    ``anisotropic_threshold`` (extension, no reference counterpart):
     when set, per-subspace k-means only initializes the codebook and
     training continues under the score-aware anisotropic loss of Guo et al.
     2020 (see hashes/avq.py) — ScaNN's MIPS-recall lever; its default there
@@ -69,7 +69,7 @@ def encode_kernel(data: jnp.ndarray, centroids: jnp.ndarray, chunk_size: int = 8
 def lut_kernel(queries: jnp.ndarray, centroids: jnp.ndarray) -> jnp.ndarray:
     """Per-query squared-L2 lookup tables [B, S, C] from [B, D] queries
     (reference: src/hashes/lut.rs:47-70 builds these per query on the host).
-    One batched einsum; tables then live in VMEM during scoring."""
+    One batched einsum."""
     b, d = queries.shape
     s, c, dsub = centroids.shape
     qs = queries.reshape(b, s, dsub)

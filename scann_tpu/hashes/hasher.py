@@ -33,7 +33,7 @@ from scann_tpu.ops.distances import (
 )
 from scann_tpu.ops.lut16_scoring import lut_score
 from scann_tpu.ops.topk import approx_top_k_smallest, top_k_smallest
-from scann_tpu.types import MASKED_DISTANCE, SUBLANE_I8, align_up, is_tpu
+from scann_tpu.types import MASKED_DISTANCE, SUBLANE_I8, align_up
 
 
 # shared threshold ladder (models/searcher.epsilons); kept under the old
@@ -51,11 +51,11 @@ class AsymmetricHasherConfig:
     max_iterations: int = 25
     training_sample_size: int = 100_000
     store_dataset: bool = True  # needed for exact reordering
-    # TPU extension beyond the reference (hasher.rs:208 hardcodes SquaredL2):
+    # extension beyond the reference (hasher.rs:208 hardcodes SquaredL2):
     # COSINE normalizes rows at build + queries at search (L2 LUTs then rank
     # identically to cosine); DOT_PRODUCT/GIP use -dot LUTs
     distance_measure: DistanceMeasure = DistanceMeasure.SQUARED_L2
-    # TPU extension: score-aware anisotropic codebook training (Guo et al.
+    # extension: score-aware anisotropic codebook training (Guo et al.
     # 2020, hashes/avq.py) — set to e.g. 0.2 to boost MIPS/cosine recall at
     # the same bit budget; None = plain reconstruction-loss PQ
     anisotropic_threshold: Optional[float] = None
@@ -80,19 +80,12 @@ def _ah_luts(queries, centroids, measure):
     return lut_kernel(queries, centroids)
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("k", "codes_transposed", "measure"))
+@functools.partial(jax.jit, static_argnames=("k", "measure"))
 def ah_search_kernel(centroids, codes, n_valid, queries, *, k: int,
-                     codes_transposed: bool = False,
                      measure: DistanceMeasure = DistanceMeasure.SQUARED_L2):
     """Approximate-only search: LUT build + scoring + top-k."""
     luts = _ah_luts(queries, centroids, measure)
-    if codes_transposed:
-        from scann_tpu.ops.pallas_kernels import lut16_score_auto
-
-        dists = lut16_score_auto(luts, codes)  # codes [S, N_pad]
-    else:
-        dists = lut_score(luts, codes)  # [B, N_pad]
+    dists = lut_score(luts, codes)  # [B, N_pad]
     # returned values (and any host-side epsilon compare) in measure units
     dists = approx_to_measure_units(dists, measure)
     col = jax.lax.broadcasted_iota(jnp.int32, dists.shape, 1)
@@ -100,34 +93,27 @@ def ah_search_kernel(centroids, codes, n_valid, queries, *, k: int,
     return top_k_smallest(dists, k)
 
 
-@functools.partial(jax.jit, static_argnames=("pre_k", "k", "measure", "codes_transposed"))
+@functools.partial(jax.jit, static_argnames=("pre_k", "k", "measure"))
 def ah_search_reorder_kernel(
     centroids, codes, db, db_sq_norms, n_valid, queries,
     pre_eps=jnp.inf, post_eps=jnp.inf, *, pre_k: int, k: int,
-    measure: DistanceMeasure, codes_transposed: bool = False,
+    measure: DistanceMeasure,
 ):
     """Approximate top-pre_k then exact re-rank to top-k, one program."""
     luts = _ah_luts(queries, centroids, measure)
-    if codes_transposed:
-        from scann_tpu.ops.pallas_kernels import lut16_score_auto
-
-        # bf16 scores: halves the [B, N] score-matrix HBM traffic (the
-        # dominant full-sweep cost); exact re-rank absorbs the rounding
-        approx = lut16_score_auto(luts, codes, out_dtype=jnp.bfloat16)
-    else:
-        approx = lut_score(luts, codes)
+    approx = lut_score(luts, codes)
     col = jax.lax.broadcasted_iota(jnp.int32, approx.shape, 1)
     approx = jnp.where(col < n_valid, approx,
                        jnp.asarray(MASKED_DISTANCE, approx.dtype))
-    # candidate selection: TPU-native approximate top-k (exact re-rank below
-    # recovers the recall_target loss); measured 121ms -> 3.8ms at [128, 1.18M]
+    # candidate selection: approximate top-k (the exact re-rank below
+    # recovers the recall_target loss)
     pre_vals, cand = approx_top_k_smallest(approx, pre_k)  # [B, pre_k]
 
     from scann_tpu.utils.reordering import gather_rerank_rows
 
     rows = gather_rerank_rows(db, cand)                # [B, pre_k, D]
-    # norms recomputed from the gathered f32 rows (per-element norm
-    # gathers cost ~20 ns each on TPU; identical math to the table)
+    # norms recomputed from the gathered f32 rows (identical math to the
+    # table, and no per-element norm gather)
     norms = jnp.sum(rows * rows, axis=-1)
     exact = gathered_distances(measure, queries, rows, norms)
     pre_m = approx_to_measure_units(pre_vals.astype(jnp.float32), measure)
@@ -137,63 +123,6 @@ def ah_search_reorder_kernel(
     idx = jnp.take_along_axis(cand, pos, axis=1)
     missing = (vals >= MASKED_DISTANCE / 2) | (vals > post_eps)
     return jnp.where(missing, jnp.inf, vals), jnp.where(missing, -1, idx)
-
-
-@functools.partial(jax.jit, static_argnames=("pre_k", "k", "measure", "r",
-                                             "tile_n", "interpret"))
-def ah_search_fused_kernel(
-    centroids, packed_codes_t, db, db_sq_norms, n_valid, queries,
-    pre_eps=jnp.inf, post_eps=jnp.inf, *, pre_k: int, k: int,
-    measure: DistanceMeasure, r: int = 32, tile_n: int = 1024,
-    interpret: bool = False,
-):
-    """Fused int8 LUT16 sweep: the [B, N] score matrix never exists in HBM.
-
-    Pipeline (one program): LUT build -> u8 quantization (reference codec,
-    lut16_simd.rs:39-90) -> fused Pallas sweep over packed int4 codes with
-    in-kernel block-min r:1 reduction -> approx top-pre_k over the [B, N/r]
-    block minima -> decode (value, point) -> exact re-rank -> top-k.
-
-    vs ah_search_reorder_kernel this serves from packed nibbles (half the
-    code HBM), integer MXU contraction, and ~2*r x less score traffic;
-    measured 3.3x end-to-end at [B=1024, N=1.18M] on v5e.
-    """
-    from scann_tpu.hashes.lut import luts_i8_evenfirst, quantize_luts_u8_device
-    from scann_tpu.ops.pallas_kernels import (
-        INVALID_COMBINED,
-        lut16_fused_sweep_pallas,
-    )
-
-    s_real = centroids.shape[0]
-    luts = _ah_luts(queries, centroids, measure)       # [B, S, C] f32
-    q_u8, mult, bias = quantize_luts_u8_device(luts)
-    luts_i8 = luts_i8_evenfirst(q_u8)                  # [B, S_pad*C] i8
-
-    comb = lut16_fused_sweep_pallas(luts_i8, packed_codes_t, n_valid,
-                                    tile_n=tile_n, r=r, interpret=interpret)
-    vals, blk = approx_top_k_smallest(comb.T, pre_k)   # [B, pre_k]
-    iv = vals.astype(jnp.int32)
-    sumq = iv // r
-    approx = sumq.astype(jnp.float32) * mult[:, None] + bias[:, None] * s_real
-    approx = approx_to_measure_units(approx, measure)
-    cand = blk * r + (iv % r)                          # global point ids
-    pre_valid = (vals < INVALID_COMBINED / 2) & (approx <= pre_eps)
-
-    from scann_tpu.utils.reordering import (
-        gather_rerank_rows,
-        rerank_store_rows,
-    )
-
-    safe = jnp.clip(cand, 0, rerank_store_rows(db) - 1)
-    rows = gather_rerank_rows(db, safe)                # [B, pre_k, D]
-    norms = jnp.sum(rows * rows, axis=-1)
-    exact = gathered_distances(measure, queries, rows, norms)
-    exact = jnp.where(pre_valid, exact, MASKED_DISTANCE)
-    out_vals, pos = top_k_smallest(exact, k)
-    idx = jnp.take_along_axis(cand, pos, axis=1)
-    missing = (out_vals >= MASKED_DISTANCE / 2) | (out_vals > post_eps)
-    return (jnp.where(missing, jnp.inf, out_vals),
-            jnp.where(missing, -1, idx))
 
 
 class AsymmetricHasher(Searcher):
@@ -254,8 +183,6 @@ class AsymmetricHasher(Searcher):
         if cfg.store_dataset:
             self._dataset = dataset
         self._codes_dev = None
-        self._codes_t_dev = None
-        self._codes_packed_t_dev = None
         return self
 
     def _device_codes(self):
@@ -267,36 +194,6 @@ class AsymmetricHasher(Searcher):
                 codes[: self._n] = self.codes
             self._codes_dev = jnp.asarray(codes)
         return self._codes_dev
-
-    def _use_pallas(self) -> bool:
-        """LUT16 Pallas sweep: C<=16 on a real TPU (4-5x the XLA one-hot)."""
-        return self.codebook.num_codes <= 16 and is_tpu()
-
-    def _device_codes_t(self):
-        if getattr(self, "_codes_t_dev", None) is None:
-            n_pad = align_up(max(self._n, 1), 2048)
-            codes = np.zeros((n_pad, self.codes.shape[1]), dtype=np.uint8)
-            codes[: self._n] = self.codes
-            self._codes_t_dev = jax.jit(lambda c: c.T)(jnp.asarray(codes))
-        return self._codes_t_dev
-
-    FUSED_TILE_N = 1024
-    FUSED_R = 32
-
-    def _device_codes_packed_t(self):
-        """[S_pad/2, N_pad] uint8 packed nibbles for the fused sweep — half
-        the HBM of the unpacked layout (reference layout lut16.rs:43-61)."""
-        if getattr(self, "_codes_packed_t_dev", None) is None:
-            from scann_tpu.hashes.lut16 import pack_codes_4bit
-
-            n_pad = align_up(max(self._n, 1), self.FUSED_TILE_N)
-            packed = pack_codes_4bit(self.codes)       # [N, S_pad/2]
-            if n_pad != self._n:
-                full = np.zeros((n_pad, packed.shape[1]), dtype=np.uint8)
-                full[: self._n] = packed
-                packed = full
-            self._codes_packed_t_dev = jax.jit(lambda c: c.T)(jnp.asarray(packed))
-        return self._codes_packed_t_dev
 
     # -- metadata --------------------------------------------------------------
     def dataset_size(self) -> int:
@@ -334,12 +231,9 @@ class AsymmetricHasher(Searcher):
         if pre_k is not None and pre_k > k:
             return self._search_reorder(queries, k, pre_k, pre_eps, post_eps)
 
-        transposed = self._use_pallas()
-        codes = self._device_codes_t() if transposed else self._device_codes()
         dists, idx = ah_search_kernel(
-            self.codebook.centroids_device(), codes,
+            self.codebook.centroids_device(), self._device_codes(),
             jnp.int32(self._n), jnp.asarray(queries), k=k,
-            codes_transposed=transposed,
             measure=self.config.distance_measure,
         )
         dists, idx = np.asarray(dists), np.asarray(idx)
@@ -367,12 +261,6 @@ class AsymmetricHasher(Searcher):
         idx, dist = self._search_reorder(q, k_c, pre_c)
         return self._to_results(idx, dist)[0]
 
-    def _use_fused(self, pre_k: int) -> bool:
-        """Fused packed-int4 sweep: needs enough blocks that one-candidate-
-        per-block selection cannot starve pre_k."""
-        n_blocks = align_up(max(self._n, 1), self.FUSED_TILE_N) // self.FUSED_R
-        return self._use_pallas() and n_blocks >= 2 * pre_k
-
     def _rerank_state(self):
         """(db_repr, norms) in the configured rerank_dtype (low-precision
         copies upload straight from host; the f32 DenseDataset cache can
@@ -398,28 +286,11 @@ class AsymmetricHasher(Searcher):
                         pre_eps=np.inf, post_eps=np.inf):
         db, norms = self._rerank_state()
         cent = self.codebook.centroids_device()
-        if self._use_fused(pre_k):
-            packed = self._device_codes_packed_t()
-            out_i, out_d = [], []
-            q = np.asarray(queries)
-            for lo in range(0, len(q), 1024):  # VMEM: LUTs+acc scale with B
-                dists, idx = ah_search_fused_kernel(
-                    cent, packed, db, norms, jnp.int32(self._n),
-                    jnp.asarray(q[lo: lo + 1024]),
-                    jnp.float32(pre_eps), jnp.float32(post_eps),
-                    pre_k=pre_k, k=k, measure=self.config.distance_measure,
-                    r=self.FUSED_R, tile_n=self.FUSED_TILE_N,
-                )
-                out_i.append(np.asarray(idx))
-                out_d.append(np.asarray(dists))
-            return np.concatenate(out_i), np.concatenate(out_d)
-        transposed = self._use_pallas()
-        codes = self._device_codes_t() if transposed else self._device_codes()
         dists, idx = ah_search_reorder_kernel(
-            cent, codes, db, norms,
+            cent, self._device_codes(), db, norms,
             jnp.int32(self._n), jnp.asarray(queries),
             jnp.float32(pre_eps), jnp.float32(post_eps), pre_k=pre_k, k=k,
-            measure=self.config.distance_measure, codes_transposed=transposed,
+            measure=self.config.distance_measure,
         )
         return np.asarray(idx), np.asarray(dists)
 

@@ -1,7 +1,7 @@
 """Host-side lookup-table types.
 
 Mirror of the reference's per-query LUT containers
-(reference: src/hashes/lut.rs:30-234). On TPU, batched LUTs are device
+(reference: src/hashes/lut.rs:30-234). Here batched LUTs are device
 arrays produced by ``Codebook.lookup_tables`` and consumed directly by the
 scoring kernels (ops/lut16_scoring.py); these host classes exist for API
 parity, for scalar verification, and for the int8-quantized table codec
@@ -106,43 +106,3 @@ def quantize_luts_u8(luts: np.ndarray) -> Tuple[np.ndarray, float, float]:
     multiplier = np.where(degenerate, 1.0, 1.0 / scale)
     q = np.floor((luts - lo[:, None, None]) * scale[:, None, None] + 0.5)
     return np.clip(q, 0, 255).astype(np.uint8), multiplier.astype(np.float32), lo.astype(np.float32)
-
-
-def quantize_luts_u8_device(luts):
-    """jnp twin of ``quantize_luts_u8`` — runs inside the search program so
-    the u8-table codec (reference: src/hashes/lut16_simd.rs:39-90) is applied
-    on device with no host round trip.
-
-    Args: luts [B, S, C] f32 (device). Returns (u8 [B,S,C], mult [B], bias [B]).
-    """
-    import jax.numpy as jnp
-
-    lo = luts.min(axis=(1, 2))
-    hi = luts.max(axis=(1, 2))
-    rng = hi - lo
-    degenerate = rng < 1e-10
-    scale = jnp.where(degenerate, 1.0, 255.0 / jnp.where(degenerate, 1.0, rng))
-    multiplier = jnp.where(degenerate, 1.0, 1.0 / scale)
-    q = jnp.floor((luts - lo[:, None, None]) * scale[:, None, None] + 0.5)
-    return jnp.clip(q, 0, 255).astype(jnp.uint8), multiplier, lo
-
-
-def luts_i8_evenfirst(q_u8):
-    """Prepare quantized tables for the fused int8 sweep kernel
-    (ops/pallas_kernels.py::lut16_fused_sweep_pallas).
-
-    Pads S to even with q=0 rows (they decode to 0 after the kernel's
-    +128*S_pad bias fold, so padding never perturbs sums), reorders
-    subspaces even-first to match the packed low/high-nibble split, biases
-    by -128 into int8, and flattens.
-
-    Args: q_u8 [B, S, C] uint8. Returns [B, S_pad*C] int8.
-    """
-    import jax.numpy as jnp
-
-    b, s, c = q_u8.shape
-    q = q_u8.astype(jnp.int32)
-    if s % 2:
-        q = jnp.pad(q, ((0, 0), (0, 1), (0, 0)))
-    q = jnp.concatenate([q[:, 0::2], q[:, 1::2]], axis=1)
-    return (q - 128).astype(jnp.int8).reshape(b, -1)

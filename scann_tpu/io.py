@@ -142,13 +142,6 @@ def _serialize(searcher):
              "pre_reorder_multiplier": searcher.config.pre_reorder_multiplier,
              "hash_config": _ah_cfg_dict(searcher.config.hash_config),
              "rerank_dtype": searcher.config.rerank_dtype,
-             # serving-kernel shape knobs: a reloaded index must rebuild
-             # its slab with the SAME l_tile the build used (a saved
-             # sharded layout's l_cap is aligned to it) and the same
-             # packing choice
-             "score_l_tile": searcher.config.score_l_tile,
-             "group_q_cap": searcher.config.group_q_cap,
-             "pack_codes": searcher.config.pack_codes,
              "rerank_layout": searcher.config.rerank_layout,
              "measure": searcher.config.distance_measure.value},
         )
@@ -288,18 +281,9 @@ def _deserialize_index(meta: dict, arrays: dict):
             pre_reorder_multiplier=meta["pre_reorder_multiplier"],
             distance_measure=DistanceMeasure(meta["measure"]),
             rerank_dtype=meta.get("rerank_dtype", "float32"),
-            score_l_tile=int(meta.get("score_l_tile", 512)),
-            # files saved before the adaptive-q_cap / packed-slab knobs
-            # existed lack these KEYS entirely (vs an explicit null):
-            # reload them with the fixed q_cap=8 unpacked slab their build
-            # default was, so a previously benchmarked index keeps serving
-            # through the exact kernel shape it was measured with
-            # (advisor r4 finding)
-            group_q_cap=(int(meta["group_q_cap"])
-                         if meta.get("group_q_cap") is not None
-                         else None if "group_q_cap" in meta else 8),
-            pack_codes=(meta["pack_codes"] if "pack_codes" in meta
-                        else False),
+            # (files may carry the retired kernel-shape keys score_l_tile,
+            # group_q_cap and pack_codes: the slab layout now follows the
+            # platform's leaf scorer, so they are ignored)
             # auto (None) resolves to "csr" only when results are
             # bit-identical to "id", so legacy files may take the faster
             # layout safely; an explicit save value round-trips
@@ -329,7 +313,7 @@ def _deserialize_index(meta: dict, arrays: dict):
 
 
 # ---------------------------------------------------------------------------
-# sharded serving-layout warm start (VERDICT r3 next #7)
+# sharded serving-layout warm start
 # ---------------------------------------------------------------------------
 
 
@@ -359,7 +343,7 @@ def save_sharded_layout(path: str, sharded) -> None:
     the host re-layout (tree: per-partition re-shard + rerank re-encode;
     sweep: augment + shuffle + rerank encode). The device upload itself is
     unavoidable either way. Supports ShardedTreeXHybridSearcher and
-    ShardedBlockSweepSearcher (VERDICT r3 next #7)."""
+    ShardedBlockSweepSearcher."""
     from scann_tpu.parallel.sharded_flagship import (
         ShardedBlockSweepSearcher,
         ShardedTreeXHybridSearcher,
@@ -408,7 +392,7 @@ def save_sharded_layout(path: str, sharded) -> None:
         json.dumps(meta).encode(), dtype=np.uint8), **arrays)
 
 
-def load_sharded_layout(path: str, cls=None, mesh=None, force_kernel=None):
+def load_sharded_layout(path: str, cls=None, mesh=None):
     """Restore a wrapper saved with :func:`save_sharded_layout` — the
     per-shard slabs go straight from disk to the sharded device layout."""
     from scann_tpu.parallel.mesh import make_mesh
@@ -447,7 +431,7 @@ def load_sharded_layout(path: str, cls=None, mesh=None, force_kernel=None):
     if kind == "tree_ah":
         layout["l_cap"] = meta["layout_l_cap"]
         layout["dequant"] = meta.get("layout_dequant")
-        return cls(inner, mesh, force_kernel=force_kernel, layout=layout)
+        return cls(inner, mesh, layout=layout)
     layout["blk"] = meta["layout_blk"]
     layout["aug_sn"] = meta["layout_aug_sn"]
     layout["dequant"] = meta["layout_dequant"]

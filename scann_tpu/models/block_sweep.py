@@ -1,15 +1,15 @@
 """Block-sweep searcher: bf16 streaming sweep + exact re-rank.
 
-The TPU-native production searcher for databases that fit HBM. Stores the
+The production searcher for databases that fit device memory. Stores the
 database once as bf16 rows augmented with their squared norm
-(ops/sweep_pallas.py) so the whole first pass is one bandwidth-bound MXU
-program, then exactly re-ranks ``pre_k`` survivors in f32.
+(ops/sweep_pallas.py) so the whole first pass is one matrix-product sweep
+with an in-register r:1 reduction, then exactly re-ranks ``pre_k``
+survivors in f32.
 
 Capability position vs the reference: sits between the exact
 ``BruteForceSearcher`` (src/brute_force/searcher.rs) and its approximate
-modes — near-perfect recall (~0.995 @ 1.18M x 100d) at ~3.5x the QPS of the
-best PQ sweep on the same chip, because at moderate D an exact bf16 matmul
-costs fewer FLOPs *and* fewer HBM bytes than PQ one-hot scoring.
+modes — at moderate D an exact bf16 matrix product costs fewer FLOPs *and*
+fewer bytes than PQ one-hot scoring.
 """
 
 from __future__ import annotations
@@ -40,12 +40,13 @@ class BlockSweepConfig:
     pre_reorder_k: int = 100
     # r:1 in-kernel reduction — one candidate survives per r-point block
     block_r: int = 32
+    # row-padding unit of the augmented copy (a power of two >= block_r)
     tile_n: int = 2048
-    # VMEM holds a [tile_n, B] f32 score block; cap the per-program batch
+    # queries per device program: bounds the [B, N/r] block-minima buffers
     max_batch: int = 1024
-    # re-rank the two smallest per block: removes the collision ceiling
-    # (~0.998 recall@10 at 1.18M) for ~2x block-minima writes + re-rank
-    # width. The tournament tree needs extra VMEM -> smaller max_batch.
+    # re-rank the two smallest per block: removes the one-candidate-per-
+    # block collision ceiling for ~2x block-minima writes + re-rank width
+    # (and half the per-program batch, since the minima buffers double)
     top2: bool = False
     # stride-shuffle rows at build so cluster-SORTED datasets (crawl/label
     # order) keep approx_min_k's uniform-layout assumption; survivors'
@@ -54,17 +55,16 @@ class BlockSweepConfig:
     shuffle: bool = True
     # dtype of the device copy the exact re-rank gathers from. The f32
     # database is the sweep's dominant serving allocation (the first pass
-    # reads only the bf16 augmented copy): at 20M x 100d the f32 copy is
-    # 9.5 GB padded and the serving program measured 21.31G > the 15.75G
-    # HBM — "bfloat16" (half) or "int8" (quarter, calibrated
-    # ScalarQuantizer codec) keeps the sweep on one chip past ~15M points.
+    # reads only the bf16 augmented copy): "bfloat16" (half) or "int8"
+    # (quarter, calibrated ScalarQuantizer codec) fits more points on one
+    # device.
     rerank_dtype: str = "float32"
     # dtype of the streamed sweep copy: "bfloat16" (default) or "int8"
     # (per-dim symmetric scales folded into the query head, squared norm
-    # as exact base-128 digits in the padding lanes — see
+    # as exact base-128 digits in the padding columns — see
     # ops/sweep_pallas.build_int8_augmented_db). int8 halves the sweep's
-    # HBM stream — the dominant cost at low batch — for a small
-    # quantization-noise recall cost recovered by the exact re-rank.
+    # byte stream for a small quantization-noise recall cost recovered by
+    # the exact re-rank.
     sweep_dtype: str = "bfloat16"
 
 
@@ -84,6 +84,9 @@ class BlockSweepSearcher(Searcher):
                 f"BlockSweepSearcher does not support {cfg.distance_measure}")
         if cfg.tile_n % cfg.block_r:
             raise ScannError.invalid_argument("tile_n must be divisible by r")
+        if cfg.block_r & (cfg.block_r - 1) or cfg.tile_n & (cfg.tile_n - 1):
+            raise ScannError.invalid_argument(
+                "block_r and tile_n must be powers of two")
         if cfg.rerank_dtype not in ("float32", "bfloat16", "int8"):
             raise ScannError.invalid_argument(
                 f"rerank_dtype must be float32, bfloat16 or int8, got "
@@ -142,10 +145,8 @@ class BlockSweepSearcher(Searcher):
         Rows are stored in the SAME permuted order as the augmented sweep
         copy (when shuffle is on), so the kernel gathers candidates at
         their raw sweep positions and translates only the k winners
-        through inv_perm — a [B, k] gather instead of [B, pre_k]
-        (per-element gathers cost ~20 ns each on TPU; the pre-gather
-        translation was ~2 ms of an ~8 ms batch at 1.18M). The sharded
-        wrapper has always used this layout
+        through inv_perm — a [B, k] gather instead of [B, pre_k]. The
+        sharded wrapper uses the same layout
         (parallel/sharded_flagship._compute_sweep_shard_layout)."""
         if self._rerank_cache is not None and self._rerank_cache[2] == n:
             return self._rerank_cache[0], self._rerank_cache[1]
@@ -170,17 +171,10 @@ class BlockSweepSearcher(Searcher):
     def _device_state(self):
         from scann_tpu.ops.sweep_pallas import (
             build_int8_augmented_db,
-            qmajor_step_rows,
             shuffle_stride_for,
         )
-        from scann_tpu.types import cdiv
 
-        # pad rows to a multiple of the q-major step (a tile_n multiple, so
-        # the row-major kernels stay valid too); enables the transpose-free
-        # q-major sweep whenever the step divides the padded row count
-        cfg_tile = self._config.tile_n
-        pad_to = cfg_tile * cdiv(qmajor_step_rows(self._config.block_r),
-                                 cfg_tile)
+        pad_to = self._config.tile_n
 
         n = self._dataset.size
         if self._aug_dev is None or self._rerank_cache is None or \
@@ -208,12 +202,6 @@ class BlockSweepSearcher(Searcher):
             self._aug_dev = jnp.asarray(aug)
         db_repr, norms = self._rerank_state(n)
         return self._aug_dev, db_repr, norms, n
-
-    @staticmethod
-    def _interpret() -> bool:
-        from scann_tpu.types import is_tpu
-
-        return not is_tpu()
 
     # -- search -----------------------------------------------------------------
     def search_batched_arrays(self, queries: np.ndarray, k: int,
@@ -266,8 +254,7 @@ class BlockSweepSearcher(Searcher):
                 aug, db, norms, jnp.int32(n_valid), jnp.asarray(q),
                 jnp.float32(pre_eps), jnp.float32(post_eps),
                 pre_k=pre_k, k=k_kern, measure=self._measure,
-                r=cfg.block_r, tile_n=cfg.tile_n,
-                interpret=self._interpret(), top2=cfg.top2,
+                r=cfg.block_r, top2=cfg.top2,
                 inv_perm=self._inv_perm, allow_pen=allow_pen,
                 aug_scales=self._aug_scales, aug_sn=self._aug_sn,
             )

@@ -1,6 +1,6 @@
 """Exact brute-force searcher.
 
-One jit program per (batch-shape, k): MXU matmul distance matrix + fused
+One jit program per (batch-shape, k): a matrix-product distance matrix +
 ``lax.top_k``. Replaces the reference's strided AVX2 one-to-many loop + heap
 (reference: src/brute_force/searcher.rs:77-139, src/simd/x86.rs:266-346,
 src/brute_force/top_k.rs:66-112). The reference's 16.9× "batched" speedup is
@@ -85,29 +85,6 @@ class BruteForceSearcher(Searcher):
             self._norms_cache = (n, jax.jit(squared_norms)(db))
         return db, self._norms_cache[1], n
 
-    def _use_fused_vmem(self, k: int, allow_mask, b: int) -> bool:
-        """Small databases search in ONE VMEM-resident Pallas kernel
-        (~10x lower per-batch overhead than the composed XLA program).
-
-        The kernel holds the database, the [B, N] distance matrix AND a
-        same-shaped column iota in VMEM at once, so eligibility must be
-        batch-aware: a 20k x 64d database passes a db-only check but OOMs
-        scoped VMEM at B=200 (measured: 17.8M > the 16M limit)."""
-        from scann_tpu.ops.fused_bf_pallas import vmem_resident_limit_bytes
-        from scann_tpu.types import SUBLANE_F32, align_up, is_tpu
-
-        on_tpu = is_tpu()
-        n_pad = align_up(max(self._dataset.size, 1), SUBLANE_F32)
-        b_pad = align_up(max(b, 1), SUBLANE_F32)
-        d = self._dataset.dimensionality
-        est = 4 * (n_pad * d          # db
-                   + 2 * b_pad * n_pad  # dists f32 + col iota i32
-                   + b_pad * d          # queries
-                   + 4 * b_pad * 128)   # padded val/idx outputs + slack
-        return (on_tpu and allow_mask is None and k <= 16
-                and self._measure == DistanceMeasure.SQUARED_L2
-                and est <= vmem_resident_limit_bytes())
-
     # -- core API ----------------------------------------------------------------
     def search_batched_arrays(self, queries: np.ndarray, k: int,
                               params: Optional[SearchParameters] = None,
@@ -119,22 +96,6 @@ class BruteForceSearcher(Searcher):
         db, norms, n = self._device_state()
         eps = params.effective_epsilon() if params is not None else np.inf
 
-        if self._use_fused_vmem(k, allow_mask, queries.shape[0]):
-            from scann_tpu.ops.fused_bf_pallas import fused_bf_search_pallas
-            from scann_tpu.types import SUBLANE_F32, align_up
-
-            b = queries.shape[0]
-            b_pad = align_up(b, SUBLANE_F32)
-            qp = np.zeros((b_pad, queries.shape[1]), np.float32)
-            qp[:b] = queries
-            vals, idx = fused_bf_search_pallas(
-                jnp.asarray(qp), db, norms[None, :], jnp.asarray([n], jnp.int32), k=k)
-            vals, idx = np.asarray(vals)[:b], np.asarray(idx)[:b]
-            if np.isfinite(eps):
-                over = vals > eps
-                vals = np.where(over, np.inf, vals)
-                idx = np.where(over, -1, idx)
-            return idx, vals
         mask_dev = None
         if allow_mask is not None:
             m = np.zeros(db.shape[0], dtype=bool)

@@ -56,8 +56,8 @@ def partitioned_search_kernel(
     safe = jnp.maximum(cand, 0)
 
     rows = jnp.take(db, safe, axis=0)                     # [B, C, D]
-    # norms recomputed from the gathered rows (TPU per-element
-    # gathers cost ~20 ns each; identical math to the table)
+    # norms recomputed from the gathered rows (identical math to the
+    # table, and no per-element norm gather)
     norms = jnp.sum(rows * rows, axis=-1)             # [B, C]
     dists = gathered_distances(measure, queries, rows, norms)
     dists = jnp.where(valid, dists, MASKED_DISTANCE)

@@ -3,7 +3,7 @@
 Replaces the reference's ``ScalarQuantizedBruteForceSearcher``
 (reference: src/brute_force/scalar_quantized.rs:82-347) with one jit program:
 asymmetric matmul scoring (ops/asymmetric.py) + fused top-k. The bf16 and fp8
-variants are native TPU dtypes, so they share the same program with
+variants are native dtypes, so they share the same program with
 scale=1/offset=0.
 """
 
@@ -41,16 +41,15 @@ class ScalarQuantizedConfig:
         default_factory=ScalarQuantizerConfig
     )
     distance_measure: DistanceMeasure = DistanceMeasure.SQUARED_L2
-    # TPU extension: storage dtype — "int8"/"int4" use the scalar codec,
+    # extension: storage dtype — "int8"/"int4" use the scalar codec,
     # "bf16"/"fp8_e4m3"/"fp8_e5m2" store native floating dtypes.
     storage: str = "int8"
 
 
-@functools.partial(jax.jit, static_argnames=("measure", "k", "codes_transposed"))
+@functools.partial(jax.jit, static_argnames=("measure", "k"))
 def _search_kernel(codes, norms, scale, offset, n_valid, queries, eps=jnp.inf,
-                   *, measure, k, codes_transposed=False):
-    dists = asymmetric_many_to_many(measure, queries, codes, norms, scale, offset,
-                                    codes_transposed=codes_transposed)
+                   *, measure, k):
+    dists = asymmetric_many_to_many(measure, queries, codes, norms, scale, offset)
     dists = mask_padded_rows(dists, n_valid, MASKED_DISTANCE)
     vals, idx = top_k_smallest(dists, k)
     # epsilon threshold on the (quantized-exact) distances (reference:
@@ -124,28 +123,17 @@ class ScalarQuantizedBruteForceSearcher(Searcher):
         return self._quantized.compression_ratio()
 
     # -- search -------------------------------------------------------------
-    def _use_pallas(self) -> bool:
-        """int8/int4 on real TPU: stream u8 tiles with the Pallas kernel
-        (5x the XLA dequant-matmul path, measured at 1M x 128d)."""
-        from scann_tpu.types import is_tpu
-
-        return is_tpu() and hasattr(self._quantized, "device_transposed")
-
     def search_batched_arrays(self, queries: np.ndarray, k: int,
                               params: Optional[SearchParameters] = None):
         queries = self._validate_queries(queries)
         k = min(int(k), self.dataset_size())
         if k <= 0:
             raise ScannError.invalid_argument(f"k must be positive, got {k}")
-        transposed = self._use_pallas()
-        if transposed:
-            codes, norms, n = self._quantized.device_transposed()
-        else:
-            codes, norms, n = self._quantized.device()
+        codes, norms, n = self._quantized.device()
         eps = params.effective_epsilon() if params is not None else np.inf
         dists, idx = _search_kernel(
             codes, norms, jnp.float32(self._scale), jnp.float32(self._offset),
             jnp.int32(n), jnp.asarray(queries), jnp.float32(eps),
-            measure=self._measure, k=k, codes_transposed=transposed,
+            measure=self._measure, k=k,
         )
         return np.asarray(idx), np.asarray(dists)

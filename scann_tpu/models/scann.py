@@ -3,7 +3,7 @@
 Mirrors the reference's top-level entry point
 (reference: src/scann.rs:19-56 SearchMode, :60-172 config-driven init,
 :364-432 ScannBuilder): the config selects among BruteForce / Partitioned /
-Hashed / TreeAH, each backed by the corresponding fused TPU searcher.
+Hashed / TreeAH, each backed by the corresponding fused device searcher.
 """
 
 from __future__ import annotations
@@ -61,10 +61,11 @@ def _hash_to_ah_config(hc: HashConfig, for_tree_ah: bool,
     )
 
 
-# Crossover constants now live in the per-chip profile
+# Crossover constants live in the per-device profile
 # (utils/chip_profile.py; override with SCANN_TPU_CHIP_PROFILE=/path.json
-# or re-measure with chip_profile.calibrate — VERDICT r3 weak #4). These
-# module constants remain as the backwards-compatible defaults.
+# or re-measure with chip_profile.calibrate). These module constants are
+# the ChipProfile defaults that the CPU test profile uses, kept for callers
+# that import them; they measure nothing.
 AUTO_SWEEP_MAX_N = 6_000_000
 AUTO_F32_RERANK_MAX_BYTES = 5 * 1024**3
 
@@ -115,19 +116,16 @@ def auto_config(n: int, dim: int,
                 measure: DistanceMeasure = DistanceMeasure.SQUARED_L2,
                 force_tree: bool = False,
                 ) -> ScannConfig:
-    """Pick an architecture from dataset scale (TPU extension; the reference
+    """Pick an architecture from dataset scale (an extension; the reference
     always requires an explicit mode, scann.rs:60-103).
 
-    The choice encodes this repo's measured single-chip crossover
-    (BENCH_NOTES.md "5M-scale"/"Adversarial" sections): up to a few million
-    points the bf16 block-min sweep + exact re-rank dominates at serving
-    batch sizes (112k QPS @ 0.998 at 1.18M; 57.7k @ 0.997 at 5M) and is
-    immune to cluster skew because it streams the whole database; past that
-    the sweep's per-batch cost keeps growing linearly with N while
-    tree-×-AH's stays ~flat, so the tree becomes the only fast (and, past
-    the HBM ceiling for two database copies, the only possible) option.
-    Partition count targets ~600 points/partition — the density the 1.18M
-    (2000 parts), 5M (8000) and 10M (16000) production builds converged to.
+    Up to a device-dependent size the bf16 block-min sweep + exact re-rank
+    wins at serving batch sizes and is immune to cluster skew because it
+    streams the whole database; past that the sweep's per-batch cost keeps
+    growing linearly with N while tree-×-AH's stays ~flat, so the tree
+    becomes the only fast (and, past the memory ceiling for two database
+    copies, the only possible) option. Partition count targets ~600
+    points/partition (1.18M points -> 2000 partitions).
 
     The crossover constants come from the chip profile
     (utils/chip_profile.load_profile): override per deployment with
@@ -159,11 +157,9 @@ def auto_config(n: int, dim: int,
     cfg.with_reordering()
     cfg.exact_reordering.num_candidates = 150
     if n * dim * 4 > prof.f32_rerank_max_bytes:
-        # past ~12M x 100d the padded f32 rerank copy (1.28x lane-padding
-        # expansion on TPU) plus codes/centroids crowds a 16 GB chip —
-        # measured: the 20M x 100d f32 program needed 21.31G vs 15.75G HBM.
-        # bf16 halves the copy at ~0.5pp recall@10 (docs/DESIGN.md
-        # "HBM budget at scale").
+        # past the profile's budget the f32 rerank copy plus codes and
+        # centroids crowds the device: bf16 halves the copy at a small
+        # recall cost (docs/DESIGN.md "Device memory at scale").
         cfg.exact_reordering.rerank_dtype = "bfloat16"
     return cfg
 
@@ -284,8 +280,8 @@ class Scann(Searcher):
         """Architecture + build knobs chosen from dataset scale, the chip
         profile, and (when a ``target_recall`` is given) cheap data
         statistics — SOAR / balance caps turn on when a sample shows the
-        cluster-mass skew that collapses 1-assignment recall (VERDICT r3
-        next #5; utils/advisor.py).
+        cluster-mass skew that collapses 1-assignment recall
+        (utils/advisor.py).
 
         With ``target_recall`` set, serving parameters are then autotuned
         on ``tune_queries`` (default: a sample of the dataset itself) and
@@ -295,7 +291,7 @@ class Scann(Searcher):
         0.23-0.41 recall, README.md:713-716).
 
         ``mesh`` (a jax.sharding.Mesh over a "db" axis) makes the choice
-        MESH-AWARE (VERDICT r4 next #4): past the one-chip serving budget
+        MESH-AWARE: past the one-chip serving budget
         (chip profile ``f32_rerank_max_bytes``, the rerank copy being the
         dominant allocation) auto() forces the tree architecture, builds
         it END-TO-END over the mesh (sharded_tree_ah_build — the database

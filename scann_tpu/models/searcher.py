@@ -3,9 +3,9 @@
 Mirrors the reference's ``Searcher`` trait / ``SearchParameters`` /
 ``SearchResult`` surface (reference: src/searcher.rs:12-30,64-101,148-186).
 
-TPU twist: the canonical entry point is *batched* array-in/array-out search —
-``search_batched_arrays(queries [B,D], k) -> (indices [B,k], dists [B,k])`` —
-because a batch of queries is one MXU program. The per-query object API wraps
+Device twist: the canonical entry point is *batched* array-in/array-out
+search — ``search_batched_arrays(queries [B,D], k) -> (indices [B,k], dists
+[B,k])`` — because a batch of queries is one device program. The per-query object API wraps
 it for parity with the reference.
 """
 

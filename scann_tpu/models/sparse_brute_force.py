@@ -2,11 +2,11 @@
 WeightedJaccard over sparse datapoints.
 
 The reference scores sparse points with sorted-index-merge loops
-(reference: src/distance_measures/sparse.rs). TPU-native formulation: a
+(reference: src/distance_measures/sparse.rs). Device formulation: a
 sparse dataset with modest dimensionality densifies to a binary incidence
 matrix ``M [N, D] ∈ {0,1}``; then for a query set q (binary [D]):
 
-    intersect = M @ q            (one MXU matmul for the whole batch)
+    intersect = M @ q            (one matmul for the whole batch)
     jaccard   = 1 - I / (|A| + |q| - I)
     dice      = 1 - 2I / (|A| + |q|)
     nzi       = -I

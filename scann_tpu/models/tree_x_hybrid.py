@@ -15,10 +15,11 @@ trips:
 
     centroid matmul -> top-p partitions
     -> per-(query, partition) residual LUTs (batched einsum)
-    -> leaf scoring over the CSR slab:
-         TPU: pairs grouped by partition, one-hot built once per group,
-              MXU contraction (ops/tree_ah_grouped.py)
-         CPU/fallback: per-pair code-row gather + LUT gather-sum
+    -> leaf scoring over the CSR slab (the formulation follows the
+       platform, see ``_leaf_scorer``):
+         grouped: pairs grouped by partition, each partition's codes read
+              once per group (ops/tree_ah_grouped.py)
+         pairs: per-pair code-row gather + LUT gather-sum
     -> masked merge across partitions -> approx top-(k·multiplier)
     -> (keep-best-per-id dedup when spilling) -> gather raw rows
     -> exact re-rank -> top-k
@@ -59,11 +60,38 @@ from scann_tpu.ops.topk import (
     top_k_unique,
 )
 from scann_tpu.ops.tree_ah_grouped import (
+    L_TILE,
+    MIN_GROUP_ROWS,
     group_pairs_by_partition,
-    tree_ah_grouped_scores_pallas,
+    grouped_scores_pallas,
 )
 from scann_tpu.partitioning.tree_partitioner import TreePartitioner, TreePartitionerConfig
-from scann_tpu.types import MASKED_DISTANCE, SUBLANE_F32, align_up
+from scann_tpu.types import MASKED_DISTANCE, SUBLANE_F32, align_up, use_gpu_kernels
+
+
+def leaf_cap(max_partition_size: int) -> int:
+    """Leaf capacity l_cap: the largest partition, rounded up to the
+    grouped scorer's L-tile."""
+    return int(align_up(max(int(max_partition_size), 8), L_TILE))
+
+
+def code_slab(codes_aligned: np.ndarray, scorer: str,
+              num_codes: int) -> np.ndarray:
+    """Host serving layout of the aligned CSR codes [N_csr, S] for a leaf
+    scorer (``tree_ah_search``): row-major [N_csr, S_pad] for "pairs", the
+    transposed [S_pad, N_csr] slab for "grouped" — nibble-packed to
+    [S_pad/2, N_csr] when the codebook has at most 16 codes (half the
+    bytes). S_pad is S rounded up to even."""
+    s = codes_aligned.shape[1]
+    codes = codes_aligned
+    if s % 2:
+        codes = np.pad(codes, ((0, 0), (0, 1)))
+    if scorer != "grouped":
+        return codes
+    if num_codes <= 16:
+        # low-nibble-first pairs (reference lut16.rs:43-61)
+        codes = codes[:, 0::2] | (codes[:, 1::2] << 4)
+    return np.ascontiguousarray(codes.T)
 
 
 @dataclasses.dataclass
@@ -98,25 +126,9 @@ class TreeXHybridConfig:
     partition_convergence_threshold: float = 1e-5
     partition_num_levels: int = 1
     partition_training_sample_size: Optional[int] = None
-    # grouped-kernel shape knobs: queries per group row-block and the code
-    # L-tile (tiles past a partition's size skip DMA + matmul entirely).
-    # group_q_cap None = adaptive from the (B, p) pair density at search
-    # time: sparse groups (few pairs per partition) favor q_cap=8 (fewer
-    # padded LUT rows; 1.18M p=10 sweep: 8/512 beat 32/256 by ~13%), dense
-    # groups favor 16 (a partition probed by ~15 queries at q_cap=8 splits
-    # into two groups and DMAs its codes twice; SOAR p=30 measured +11%
-    # QPS at q_cap=16). An explicit int pins it.
-    group_q_cap: Optional[int] = None
-    score_l_tile: int = 512
     # approximate top-p centroid selection (lax.approx_min_k) once the
     # centroid count makes the sort-based exact top-k the bottleneck
     approx_selection_min_partitions: int = 1024
-    # pack the serving CSR slab to int4 (two codes per byte, reference
-    # layout lut16.rs:43-61): ~2.5x less slab HBM and code-stream DMA at
-    # s_pad=align_up(S,32) slop vs nibble-pair alignment. None = auto
-    # (pack whenever the grouped kernel serves and num_codes <= 16);
-    # False forces the unpacked u8 slab (kernel A/B benchmarking)
-    pack_codes: Optional[bool] = None
     # spilling serving: dedup a spilled point's copies BEFORE the exact
     # rerank gather (sort-based keep-best-per-id over the approx slots), so
     # the [B, pre_k, D] gather — the measured latency floor — runs at
@@ -127,8 +139,8 @@ class TreeXHybridConfig:
     # halves the dominant serving allocation (f32 database: 8 GB at
     # 20M x 100d) at ~3 decimal digits of distance precision — measured
     # recall@10 cost ~0.5pp at 200k x 100d clustered data (0.944 -> 0.939
-    # at equal config) and the single-chip capacity ceiling doubles
-    # (docs/DESIGN.md "HBM budget at scale"). "int8" quarters it using the
+    # at equal config) and the single-device capacity ceiling doubles
+    # (docs/DESIGN.md "Device memory at scale"). "int8" quarters it using the
     # residual-anchored per-dim codec (utils/reordering.
     # residual_rerank_codec: quantize row - center[token], add the
     # centroid back after the gather) — this implements the reference's
@@ -136,22 +148,21 @@ class TreeXHybridConfig:
     # at cluster-noise resolution instead of cluster-spread resolution.
     # "int16" is the same residual codec at 65536 levels — bf16's byte
     # cost with a ~256x finer step, re-ranking essentially exactly where
-    # bf16 measures -0.55pp in-pool at 20M (BENCH_NOTES round-5 fidelity
-    # study): prefer it over bf16 whenever the data is partitioned.
+    # bf16 loses about half a point of recall in-pool: prefer it over bf16
+    # whenever the data is partitioned.
     # Norms are recomputed from the rounded rows so the ||d||² term is
     # exactly consistent with the gathered vectors.
     rerank_dtype: str = "float32"
     # layout of the rerank store. "id" = original-id row order (the rerank
     # gather translates CSR positions through the [N_csr] perm table — a
-    # [B, sel_k] scalar gather at ~20 ns/element, ~12 ms/batch at SOAR
-    # width). "csr" = CSR row order with the point id embedded in 4
-    # base-256 digit lanes the (8,128) lane tiling pads for free
+    # [B, sel_k] scalar gather). "csr" = CSR row order with the point id
+    # embedded in 4 base-256 digit columns of the row padding
     # (utils/reordering.build_csr_rerank_store): the gather takes the
     # arithmetically-resolved positions directly and the perm gather
     # disappears. None = auto: "csr" when each point has one assignment
     # and the store is f32/bf16 (identical bytes, identical results,
     # strictly less gather work); "id" under spilling (the CSR store
-    # carries one row per assignment = x multiplicity HBM) and for the
+    # carries one row per assignment = x multiplicity bytes) and for the
     # residual-anchored int8 codec (needs its per-row anchor token).
     rerank_layout: Optional[str] = None
 
@@ -268,26 +279,11 @@ def candidate_rows_from_positions(parts, csr_offsets, num_rows, pos, *,
     min(csr_offsets[parts[b, ti]] + l, num_rows-1) — a [B, p] offset
     gather plus modular arithmetic, instead of take_along_axis over the
     materialized [B, p*l_cap] position tensor. At SOAR width
-    (p*l_cap = 61k) the materialize+gather measured ~20-25 ms/batch —
-    bigger than the leaf scoring itself (BENCH_NOTES round-5 stage
-    decomposition); this replacement is ~free."""
+    (p*l_cap = 61k) that materialize+gather is a [B, p*l_cap] tensor
+    larger than the leaf scores; this replacement touches only [B, sel]."""
     offs = jnp.take(csr_offsets, parts, axis=0)            # [B, p]
-    ti = pos % p
-    l = pos // p
-    # one-hot MXU contraction instead of take_along_axis: per-ELEMENT
-    # gathers cost ~20 ns each on TPU regardless of table size (a
-    # [B, sel_k] take_along over the tiny [B, p] table measured
-    # +12 ms/batch at B=1024, sel=600 — half the leaf-scoring cost),
-    # while a [B, sel, p] one-hot matmul is MXU work in the microseconds.
-    # Offsets split into 8192-based digits so each f32 contraction stays
-    # exact past 2^24 CSR rows (SOAR at 20M has ~41M).
-    onehot = jax.nn.one_hot(ti, p, dtype=jnp.float32)      # [B, sel, p]
-    offs_f = offs.astype(jnp.float32)
-    hi = jnp.floor(offs_f / 8192.0)
-    lo = offs_f - hi * 8192.0
-    row0 = (jnp.einsum("bsp,bp->bs", onehot, hi) * 8192.0
-            + jnp.einsum("bsp,bp->bs", onehot, lo)).astype(jnp.int32)
-    return jnp.minimum(row0 + l, num_rows - 1)
+    row0 = jnp.take_along_axis(offs, pos % p, axis=1)      # exact int32
+    return jnp.minimum(row0 + pos // p, num_rows - 1)
 
 
 def _csr_row_positions(parts, csr_offsets, num_rows, *, p: int, l_cap: int):
@@ -302,8 +298,8 @@ def _csr_row_positions(parts, csr_offsets, num_rows, *, p: int, l_cap: int):
 
 def leaf_scores_xla(luts_flat, parts, codes_rows, csr_offsets, part_sizes,
                     *, p: int, l_cap: int, c: int):
-    """XLA leaf scoring (CPU / fallback): per-pair code-row gather + LUT
-    gather-sum. Returns ([B, p*l_cap] leaf-major scores with
+    """Plain leaf scoring (the CPU path, and the reference the grouped
+    kernel is tested against): per-pair code-row gather + LUT gather-sum. Returns ([B, p*l_cap] leaf-major scores with
     MASKED_DISTANCE beyond each partition's size, [B, p*l_cap] CSR rows).
 
     Shard-local by construction: used verbatim inside the sharded tree-AH
@@ -330,77 +326,57 @@ def leaf_scores_xla(luts_flat, parts, codes_rows, csr_offsets, part_sizes,
     return flat_scores, rows_il
 
 
-def leaf_scores_grouped(luts_flat, parts, codes_csr, csr_offsets, part_sizes,
-                        *, p: int, l_cap: int, q_cap: int, l_tile: int,
-                        interpret: bool = False, int8_luts: bool = False,
-                        packed: bool = False):
-    """Grouped-MXU leaf scoring (ops/tree_ah_grouped.py): pairs grouped by
-    partition, one-hot built once per group, MXU contraction. Returns
-    ([B, p*l_cap] leaf-major scores — bf16 (or affine-restored f32 on the
-    int8 path) with MASKED_DISTANCE beyond each size, [B, p*l_cap] rows).
+def leaf_scores_grouped(luts_flat, parts, codes, csr_offsets, part_sizes,
+                        *, p: int, l_cap: int, c: int,
+                        interpret: bool = False):
+    """Grouped leaf scoring (ops/tree_ah_grouped.py): pairs grouped by
+    partition, each partition's codes read once per group of up to
+    MIN_GROUP_ROWS queries (the rows of one tensor-core product) by the
+    Triton-route kernel. ``codes`` is the transposed slab of
+    ``code_slab(.., "grouped")`` (packed when it has half as many rows as
+    the LUTs have subspaces). Returns ([B, p*l_cap] leaf-major bf16 scores
+    with MASKED_DISTANCE beyond each partition's size, [B, p*l_cap] CSR
+    rows).
 
-    Shard-local by construction (no cross-chip communication inside): the
-    sharded tree-AH calls this inside its shard_map body with the shard's
-    own transposed CSR slab, so multi-chip serving uses the same Pallas
-    kernel that won the single-chip numbers.
-
-    ``packed=True``: codes_csr is the [S_pad/2, N_csr] packed-nibble slab
-    (low-nibble-first, reference lut16.rs:43-61); the LUT rows are permuted
-    here to the even-first subspace order the in-kernel unpack produces.
+    Shard-local by construction (no cross-device communication inside):
+    the sharded tree-AH calls this inside its shard_map body with the
+    shard's own slab.
     """
     b = parts.shape[0]
-    s_pad = (2 * codes_csr.shape[0]) if packed else codes_csr.shape[0]
+    s_pad = luts_flat.shape[1] // c
     num_partitions = part_sizes.shape[0]
-    num_rows = codes_csr.shape[1]
+    num_rows = codes.shape[1]
+    q_cap = MIN_GROUP_ROWS
     grp_part, slot, ng = group_pairs_by_partition(parts, num_partitions, q_cap)
     grp_safe = jnp.maximum(grp_part, 0)
     grp_off = jnp.take(csr_offsets, grp_safe)
     # unused groups (grp_part == -1) get size 0: the kernel then skips
-    # their DMA and matmul entirely
+    # their loads and products entirely
     grp_size = jnp.where(grp_part >= 0, jnp.take(part_sizes, grp_safe), 0)
     pair_of_slot = jnp.zeros((ng * q_cap,), jnp.int32).at[slot].set(
         jnp.arange(b * p, dtype=jnp.int32))
-    if int8_luts:
-        # global per-batch affine: lut_i8 = round((lut - lo)/scale) - 128.
-        # score_real = scale*(score_i16 + 128*s_pad) + s_pad*lo — the pad
-        # subspaces' zero rows quantize to a constant that the affine
-        # absorbs, so real units (and epsilon thresholds) survive exactly
-        lo = jnp.min(luts_flat)
-        scale = jnp.maximum(jnp.max(luts_flat) - lo, 1e-6) / 255.0
-        luts_q = jnp.clip(jnp.round((luts_flat - lo) / scale), 0, 255)
-        luts_cast = (luts_q - 128.0).astype(jnp.int8)
-    else:
-        # bf16 before the grouped gather: the kernel contracts in bf16
-        # anyway, casting first halves the gather's HBM traffic
-        luts_cast = luts_flat.astype(jnp.bfloat16)
-    if packed:
-        # even-first subspace order to match the in-kernel nibble unpack
-        # (low nibbles = even subspaces come out first)
-        c_ = luts_cast.shape[1] // s_pad
-        l3 = luts_cast.reshape(-1, s_pad, c_)
-        luts_cast = jnp.concatenate([l3[:, 0::2], l3[:, 1::2]],
-                                    axis=1).reshape(-1, s_pad * c_)
-    luts_grouped = jnp.take(luts_cast, pair_of_slot, axis=0)
-
-    scores_g = tree_ah_grouped_scores_pallas(
-        luts_grouped, codes_csr, grp_off, grp_size,
-        l_cap=l_cap, l_tile=l_tile, q_cap=q_cap, interpret=interpret,
-        packed=packed)
+    # bf16 before the grouped gather: the products run in bf16 anyway,
+    # casting first halves the gather's traffic
+    luts = luts_flat.astype(jnp.bfloat16)
+    c_pad = max(16, 1 << (c - 1).bit_length())
+    if c_pad != c:
+        # tensor-core products need K >= 16: zero LUT columns for codes
+        # that never occur
+        luts = jnp.pad(luts.reshape(b * p, -1, c),
+                       ((0, 0), (0, 0), (0, c_pad - c))).reshape(b * p, -1)
+    luts3 = jnp.take(luts, pair_of_slot, axis=0).reshape(ng, q_cap, -1)
+    scores_g = grouped_scores_pallas(luts3, codes, grp_off, grp_size,
+                                     l_cap=l_cap,
+                                     packed=2 * codes.shape[0] == s_pad,
+                                     interpret=interpret)
     # Interleave partitions across the flat candidate axis (leaf-major, not
     # partition-major): lax.approx_min_k's recall guarantee assumes the top
     # elements are spread roughly uniformly, but partition-major order
-    # concentrates them in the best partition's contiguous block — measured
-    # recall@10 0.9988 -> 0.9309 at 1.18M, worsening with p*l_cap. The
-    # transpose is free relative to leaf scoring and restores the guarantee.
-    flat_scores = jnp.take(scores_g, slot, axis=0).reshape(
-        b, p, l_cap).transpose(0, 2, 1).reshape(b, p * l_cap)
-    if int8_luts:
-        from scann_tpu.ops.tree_ah_grouped import I16_MASK
-
-        real = scale * (flat_scores.astype(jnp.float32) + 128.0 * s_pad) \
-            + s_pad * lo
-        flat_scores = jnp.where(flat_scores == I16_MASK, MASKED_DISTANCE,
-                                real)
+    # concentrates them in the best partition's contiguous block (recall
+    # collapses as p*l_cap grows). The transpose restores the guarantee.
+    flat_scores = jnp.take(scores_g.reshape(ng * q_cap, l_cap), slot,
+                           axis=0).reshape(b, p, l_cap).transpose(
+                               0, 2, 1).reshape(b, p * l_cap)
     rows_il = _csr_row_positions(parts, csr_offsets, num_rows,
                                  p=p, l_cap=l_cap)
     return flat_scores, rows_il
@@ -474,15 +450,12 @@ def _finalize(db, db_sq_norms, queries, flat_scores, row_ctx, perm,
             # anchored (int8/int16 residual) csr store: rows are
             # RESIDUALS; the anchor centroid is reconstructed from the
             # selection position itself — slot j belongs to partition
-            # parts[b, j % p] (leaf-major layout) — via a one-hot MXU
-            # contraction over the tiny per-query [p, D] centroid tile.
-            # No anchor-token table, no [B, sel] anchor gather.
-            centers = row_ctx[3]
-            sel = pre_pos.shape[-1]
-            ti = pre_pos % p
-            onehot = jax.nn.one_hot(ti, p, dtype=jnp.float32)
-            c_sel = jnp.take(centers, parts, axis=0)         # [B, p, D]
-            rows = rows + jnp.einsum("bsp,bpd->bsd", onehot, c_sel)
+            # parts[b, j % p] (leaf-major layout) — gathered exactly from
+            # the tiny per-query [p, D] centroid tile (no anchor-token
+            # table).
+            c_sel = jnp.take(row_ctx[3], parts, axis=0)      # [B, p, D]
+            rows = rows + jnp.take_along_axis(
+                c_sel, (pre_pos % p)[..., None], axis=1)     # [B, sel, D]
         norms = jnp.sum(rows * rows, axis=-1)
         exact = gathered_distances(measure, queries, rows, norms)
         exact = jnp.where(pre_valid, exact, MASKED_DISTANCE)
@@ -508,9 +481,8 @@ def _finalize(db, db_sq_norms, queries, flat_scores, row_ctx, perm,
 
     rows = gather_rerank_rows(db, pre_safe)                   # [B, pre_k, D]
     # norms recomputed from the gathered rows (identical math: the norms
-    # table is built from the same dequantized rows) — a [B, pre_k]
-    # per-element norm gather costs ~20 ns/element on TPU; the square-sum
-    # over rows already resident in registers is ~free
+    # table is built from the same dequantized rows) — no [B, pre_k]
+    # per-element norm gather; the rows are already gathered
     norms = jnp.sum(rows * rows, axis=-1)
     exact = gathered_distances(measure, queries, rows, norms)
     exact = jnp.where(pre_valid, exact, MASKED_DISTANCE)
@@ -524,44 +496,56 @@ def _finalize(db, db_sq_norms, queries, flat_scores, row_ctx, perm,
 
 
 def tree_ah_search(
-    db, db_sq_norms, centers, codes_rows, csr_offsets, part_sizes, perm,
+    db, db_sq_norms, centers, codes, csr_offsets, part_sizes, perm,
     codebook, queries, n_valid, allow_mask, pre_eps, post_eps,
     *, p: int, pre_k: int, k: int, l_cap: int, use_residuals: bool,
     measure: DistanceMeasure, reorder: bool = True, multiplicity: int = 1,
     approx_select_min: int = 1024, spill_dedup: bool = True,
-    csr_store: bool = False,
+    csr_store: bool = False, scorer: str = "pairs",
 ):
-    """XLA leaf-scoring path (CPU and fallback): per-pair code-row gather +
-    LUT gather-sum over the CSR slab.
+    """The whole tree-AH search as one device program.
 
     Args:
         db: [N_pad, D] raw vectors (for re-ranking).
-        codes_rows: [N_csr, S_pad] uint8 per-assignment PQ codes, rows
-            partition-contiguous, partition starts 128-aligned.
+        codes: per-assignment PQ codes in the CSR serving layout of
+            ``scorer`` (``code_slab``): rows partition-contiguous,
+            partition starts 128-aligned.
         csr_offsets: [K] int32 first CSR row of each partition.
         part_sizes: [K] int32.
         perm: [N_csr] int32 CSR row -> original point id.
         allow_mask: [N_pad] bool or None — restrict allowlist.
         pre_eps / post_eps: f32 scalars (inf = no threshold).
+        scorer: leaf scoring formulation — "grouped" (the grouped kernel,
+            ``leaf_scores_grouped``) or "pairs" (``leaf_scores_xla``).
     """
     parts = _select_partitions(centers, queries, p=p,
                                approx_min=approx_select_min,
                                measure=measure)                  # [B, p]
-    s_pad = codes_rows.shape[1]
     c = codebook.shape[1]
+    s_pad = align_up(codebook.shape[0], 2)      # code_slab's subspace pad
+    num_rows = codes.shape[1] if scorer == "grouped" else codes.shape[0]
     luts_flat = _residual_luts(queries, centers, parts, codebook,
                                s_pad=s_pad, use_residuals=use_residuals,
                                measure=measure)
-
-    flat_scores, rows_il = leaf_scores_xla(
-        luts_flat, parts, codes_rows, csr_offsets, part_sizes,
-        p=p, l_cap=l_cap, c=c)
+    if scorer == "grouped":
+        flat_scores, rows_il = leaf_scores_grouped(
+            luts_flat, parts, codes, csr_offsets, part_sizes,
+            p=p, l_cap=l_cap, c=c)
+    else:
+        flat_scores, rows_il = leaf_scores_xla(
+            luts_flat, parts, codes, csr_offsets, part_sizes,
+            p=p, l_cap=l_cap, c=c)
     if allow_mask is not None:
+        # restricts are pre-selection hard filters (reference semantics):
+        # the bit gather is per-candidate and costs what the unmasked
+        # path deliberately avoids — acceptable for filtered queries
+        # (rows_il materializes only on this branch; the unmasked path
+        # resolves candidate rows arithmetically after selection)
         allow_csr = jnp.take(allow_mask, jnp.maximum(perm, 0), axis=0)
         allowed = jnp.take(allow_csr, rows_il, axis=0)
         flat_scores = jnp.where(allowed, flat_scores, MASKED_DISTANCE)
     return _finalize(db, db_sq_norms, queries, flat_scores,
-                     (parts, csr_offsets, codes_rows.shape[0], centers), perm,
+                     (parts, csr_offsets, num_rows, centers), perm,
                      pre_eps, post_eps, pre_k=pre_k, k=k, p=p,
                      measure=measure,
                      reorder=reorder, multiplicity=multiplicity,
@@ -572,73 +556,7 @@ tree_ah_kernel = jax.jit(
     tree_ah_search,
     static_argnames=("p", "pre_k", "k", "l_cap", "use_residuals", "measure",
                      "reorder", "multiplicity", "approx_select_min",
-                     "spill_dedup", "csr_store"),
-)
-
-
-def tree_ah_search_grouped(
-    db, db_sq_norms, centers, codes_csr, csr_offsets, part_sizes, perm,
-    codebook, queries, n_valid, allow_mask, pre_eps, post_eps,
-    *, p: int, pre_k: int, k: int, l_cap: int, use_residuals: bool,
-    measure: DistanceMeasure, reorder: bool = True, multiplicity: int = 1,
-    approx_select_min: int = 1024, q_cap: int = 32, l_tile: int = 256,
-    interpret: bool = False, int8_luts: bool = False, packed: bool = False,
-    spill_dedup: bool = True, csr_store: bool = False,
-):
-    """TPU fast path: grouped MXU leaf scoring (ops/tree_ah_grouped.py).
-
-    codes_csr: [S_pad, N_csr] uint8 — the transposed CSR slab (candidates on
-    the lane dimension for the in-kernel DMA); with ``packed=True`` it is
-    the [S_pad/2, N_csr] packed-nibble slab (two 4-bit codes per byte,
-    reference layout lut16.rs:43-61) — ~2x less code-stream HBM traffic
-    and slab memory at num_codes <= 16.
-
-    int8_luts: quantize the per-pair LUTs to u8-biased int8 with one global
-    (lo, scale) per batch (reference analog: lut16_simd.rs:39-141's
-    bias/multiplier tables). The i16 scores map back to real distance units
-    by a single affine, so epsilon semantics are preserved; ranking inside
-    the quantization grid loses < one LUT step, recovered by the exact
-    re-rank. Halves LUT gather traffic and VMEM — but measured 5-10% SLOWER
-    end-to-end at s_pad=64 (the quantize min/max passes and i16->f32 affine
-    outweigh the int8-MXU gain), so it is off by default; turn on when LUT
-    VMEM is the binding constraint (large S*C or q_cap).
-    """
-    parts = _select_partitions(centers, queries, p=p,
-                               approx_min=approx_select_min,
-                               measure=measure)                  # [B, p]
-    s_pad = (2 * codes_csr.shape[0]) if packed else codes_csr.shape[0]
-    luts_flat = _residual_luts(queries, centers, parts, codebook,
-                               s_pad=s_pad, use_residuals=use_residuals,
-                               measure=measure)
-
-    flat_scores, rows_il = leaf_scores_grouped(
-        luts_flat, parts, codes_csr, csr_offsets, part_sizes,
-        p=p, l_cap=l_cap, q_cap=q_cap, l_tile=l_tile,
-        interpret=interpret, int8_luts=int8_luts, packed=packed)
-    if allow_mask is not None:
-        # restricts are pre-selection hard filters (reference semantics):
-        # the bit gather is per-candidate and costs what the unmasked
-        # fast path deliberately avoids — acceptable for filtered queries
-        # (rows_il materializes only on this branch; the unmasked path
-        # resolves candidate rows arithmetically after selection)
-        allow_csr = jnp.take(allow_mask, jnp.maximum(perm, 0), axis=0)
-        allowed = jnp.take(allow_csr, rows_il, axis=0)
-        flat_scores = jnp.where(allowed, flat_scores, MASKED_DISTANCE)
-    num_rows = codes_csr.shape[1]
-    return _finalize(db, db_sq_norms, queries, flat_scores,
-                     (parts, csr_offsets, num_rows, centers), perm,
-                     pre_eps, post_eps, pre_k=pre_k, k=k, p=p,
-                     measure=measure,
-                     reorder=reorder, multiplicity=multiplicity,
-                     spill_dedup=spill_dedup, csr_store=csr_store)
-
-
-tree_ah_grouped_kernel = jax.jit(
-    tree_ah_search_grouped,
-    static_argnames=("p", "pre_k", "k", "l_cap", "use_residuals", "measure",
-                     "reorder", "multiplicity", "approx_select_min", "q_cap",
-                     "l_tile", "interpret", "int8_luts", "packed",
-                     "spill_dedup", "csr_store"),
+                     "spill_dedup", "csr_store", "scorer"),
 )
 
 
@@ -802,19 +720,18 @@ class TreeXHybridSearcher(Searcher):
 
     def memory_usage(self) -> int:
         """Device bytes of the serving CSR code slab + centroids +
-        codebook — the actual HBM the kernels read (the harness publishes
-        this as index_device_bytes). With the packed-int4 slab
-        (``_pack_codes()``) each row costs ceil(S/2) bytes at nibble-pair
-        alignment (reference layout lut16.rs:43-61); the unpacked u8 slab
-        costs align_up(S,32) bytes/row plus 128-aligned partition gaps."""
+        codebook — the device memory the leaf scorer reads (the harness
+        publishes this as index_device_bytes). The grouped kernel's packed
+        slab costs ceil(S/2) bytes per row, the row-major slab S rounded up
+        to even; both carry 128-aligned partition gaps and an int32 perm."""
         tk = self.partitioner.tokenization
         sizes = tk.partition_sizes.astype(np.int64)
         aligned_rows = int((((sizes + 127) // 128) * 128).sum())
-        l_tile = max(int(self.config.score_l_tile), 128)
-        aligned_rows += int(align_up(max(tk.max_partition_size, 8), l_tile))
-        s = self.codes.shape[1]
-        row_bytes = (int(align_up((s + 1) // 2, 8)) if self._pack_codes()
-                     else int(align_up(s, 32)))
+        aligned_rows += leaf_cap(tk.max_partition_size)
+        s = int(align_up(self.codes.shape[1], 2))
+        packed = (self._leaf_scorer() == "grouped"
+                  and self.config.hash_config.num_codes <= 16)
+        row_bytes = s // 2 if packed else s
         return int(aligned_rows * row_bytes  # code slab (+ int32 perm below)
                    + aligned_rows * 4
                    + self.partitioner.centers.nbytes
@@ -838,13 +755,12 @@ class TreeXHybridSearcher(Searcher):
                         and self.partitioner is not None):
                     # residual-anchored int8/int16: quantize
                     # row - center[token] so the levels resolve
-                    # within-cluster noise, not the cluster spread (the
-                    # measured 3.5pp-at-20M codec failure, BENCH_NOTES
-                    # round 4); anchors are the tree's own centroids.
+                    # within-cluster noise, not the cluster spread (a
+                    # global codec loses recall at scale); anchors are
+                    # the tree's own centroids.
                     # int16 = bf16's bytes with a ~256x finer step on the
                     # residual scale: re-ranks essentially exactly where
-                    # bf16 measures -0.55pp in-pool at 20M (round-5
-                    # fidelity study)
+                    # bf16 loses ~0.5pp in-pool
                     db_repr, norms = build_residual_rerank_store(
                         self._dataset.numpy(), n,
                         self.partitioner.tokenization.tokens,
@@ -862,47 +778,28 @@ class TreeXHybridSearcher(Searcher):
             self._norms_cache = (n, jax.jit(squared_norms)(db))
         return db, self._norms_cache[1], n
 
-    def _pack_codes(self) -> bool:
-        """Serve the packed-int4 slab? (auto: grouped kernel + 4-bit codes;
-        config.pack_codes overrides)."""
-        if not self._use_grouped_pallas():
-            return False
-        if self.config.hash_config.num_codes > 16:
-            return False
-        pc = self.config.pack_codes
-        return True if pc is None else bool(pc)
-
     def _csr_state(self):
-        """Aligned CSR device layout shared by both leaf-scoring paths:
-        row-major [N_csr, S_pad] codes, transposed [S_pad, N_csr] slab for
-        the Pallas DMA (packed to two 4-bit codes per byte when
-        ``_pack_codes()``, halving the slab and its DMA stream), aligned
-        offsets, sizes, row->id perm, l_cap."""
+        """Aligned CSR device layout: the code slab in the serving layout
+        of ``_leaf_scorer()`` (``code_slab``), aligned offsets, sizes,
+        row->id perm, l_cap."""
         if self._csr_cache is None:
             tk = self.partitioner.tokenization
-            l_tile = max(int(self.config.score_l_tile), 128)
-            l_cap = int(align_up(max(tk.max_partition_size, 8), l_tile))
+            l_cap = leaf_cap(tk.max_partition_size)
             k = tk.num_partitions
             sizes = tk.partition_sizes
-            # 128-align every partition's CSR start (DMA lane tiling)
+            # 128-align every partition's CSR start; the slab keeps l_cap
+            # rows past the last start so every L-tile load stays in bounds
             aligned = np.zeros(k + 1, dtype=np.int64)
             aligned[1:] = np.cumsum(
                 ((sizes.astype(np.int64) + 127) // 128) * 128)
             total = int(aligned[-1]) + l_cap
             s = self.codes.shape[1]
-            packed = self._pack_codes()
-            # packed: byte rows align to 8 sublanes (Mosaic requires DMA
-            # slice sublanes % 8 == 0), so s_pad = 2*align_up(ceil(S/2),8)
-            # — half the unpacked slab's align-32 slop at S=50 (64 -> 32
-            # bytes/row), a quarter at S=8 (32 -> 8)
-            s_pad = (2 * int(align_up((s + 1) // 2, 8)) if packed
-                     else int(align_up(s, 32)))
-            codes_aligned = np.zeros((total, s_pad), dtype=np.uint8)
+            codes_aligned = np.zeros((total, s), dtype=np.uint8)
             perm_aligned = np.zeros(total, dtype=np.int32)
             csr_off = tk.offsets
             for t in range(k):
                 lo, sz = int(aligned[t]), int(sizes[t])
-                codes_aligned[lo : lo + sz, :s] = \
+                codes_aligned[lo : lo + sz] = \
                     self.codes[csr_off[t] : csr_off[t] + sz]
                 perm_aligned[lo : lo + sz] = tk.partition_indices(t)
             # host copies kept for the id-embedded CSR rerank store
@@ -913,24 +810,9 @@ class TreeXHybridSearcher(Searcher):
                 lo, sz = int(aligned[t]), int(sizes[t])
                 parts_aligned[lo : lo + sz] = t
             self._csr_parts_np = parts_aligned
-            if self._use_grouped_pallas():
-                # TPU serves only through the transposed slab — skip the
-                # row-major device copy entirely (1.3 GB saved at 20M,
-                # S_pad=64; transpose on host, upload once)
-                codes_rows = None
-                if packed:
-                    # low-nibble-first pairs (reference lut16.rs:43-61)
-                    host_slab = (codes_aligned[:, 0::2]
-                                 | (codes_aligned[:, 1::2] << 4))
-                else:
-                    host_slab = codes_aligned
-                codes_csr = jnp.asarray(np.ascontiguousarray(host_slab.T))
-            else:
-                codes_rows = jnp.asarray(codes_aligned)
-                codes_csr = jax.jit(lambda cr: cr.T)(codes_rows)
             self._csr_cache = (
-                codes_rows,
-                codes_csr,
+                jnp.asarray(code_slab(codes_aligned, self._leaf_scorer(),
+                                      self.config.hash_config.num_codes)),
                 jnp.asarray(aligned[:-1].astype(np.int32)),
                 jnp.asarray(sizes.astype(np.int32)),
                 jnp.asarray(perm_aligned),
@@ -938,10 +820,10 @@ class TreeXHybridSearcher(Searcher):
             )
         return self._csr_cache
 
-    def _use_grouped_pallas(self) -> bool:
-        from scann_tpu.types import is_tpu
-
-        return is_tpu()
+    def _leaf_scorer(self) -> str:
+        """Leaf-scoring formulation: the grouped kernel on the GPU, the
+        per-pair gather formulation on the CPU (tree_ah_search)."""
+        return "grouped" if use_gpu_kernels() else "pairs"
 
     def _rerank_layout(self) -> str:
         """Resolved rerank-store layout (see TreeXHybridConfig.rerank_layout):
@@ -978,18 +860,6 @@ class TreeXHybridSearcher(Searcher):
             self._csr_store_cache = (store, n)
         return self._csr_store_cache
 
-    def effective_q_cap(self, b: int, p: int) -> int:
-        """Grouped-kernel queries-per-group: the config's explicit value,
-        or adaptive from the expected pairs-per-partition density
-        (b*p / num_partitions). The measured crossover sits between ~10
-        pairs (200k flagship shape: q_cap=8 still fastest at density
-        10.2) and ~15 (SOAR p=30: 16 wins by 11%) — threshold 12 keeps
-        both measured winners (see TreeXHybridConfig.group_q_cap)."""
-        if self.config.group_q_cap is not None:
-            return int(self.config.group_q_cap)
-        kparts = max(self.partitioner.num_partitions, 1)
-        return 16 if (b * p) / kparts >= 12.0 else 8
-
     # -- search -----------------------------------------------------------------
     def search_batched_arrays(self, queries: np.ndarray, k: int,
                               params: Optional[SearchParameters] = None,
@@ -1018,8 +888,7 @@ class TreeXHybridSearcher(Searcher):
             pre_k = int(np.ceil(k * cfg.pre_reorder_multiplier))
         pre_eps, post_eps = (np.float32(e) for e in epsilons(params))
 
-        codes_rows, codes_csr, csr_offsets, part_sizes, perm, l_cap = \
-            self._csr_state()
+        codes, csr_offsets, part_sizes, perm, l_cap = self._csr_state()
         mult = self.partitioner.tokenization.max_multiplicity
         # id-embedded CSR store: restricts go through the id layout (the
         # allow mask is indexed by original ids over rows_il, which only
@@ -1055,23 +924,12 @@ class TreeXHybridSearcher(Searcher):
                       measure=cfg.distance_measure, multiplicity=mult,
                       approx_select_min=cfg.approx_selection_min_partitions,
                       spill_dedup=cfg.spill_dedup, csr_store=csr_store)
-        if self._use_grouped_pallas():
-            from scann_tpu.types import is_tpu
-
-            dists, idx = tree_ah_grouped_kernel(
-                db, norms, self.partitioner.centers_device(), codes_csr,
-                csr_offsets, part_sizes, perm,
-                self.codebook.centroids_device(), jnp.asarray(queries),
-                jnp.int32(n_valid), mask_dev, pre_eps, post_eps,
-                q_cap=self.effective_q_cap(len(queries), p),
-                l_tile=cfg.score_l_tile,
-                interpret=not is_tpu(), packed=self._pack_codes(), **common)
-        else:
-            dists, idx = tree_ah_kernel(
-                db, norms, self.partitioner.centers_device(), codes_rows,
-                csr_offsets, part_sizes, perm,
-                self.codebook.centroids_device(), jnp.asarray(queries),
-                jnp.int32(n_valid), mask_dev, pre_eps, post_eps, **common)
+        dists, idx = tree_ah_kernel(
+            db, norms, self.partitioner.centers_device(), codes,
+            csr_offsets, part_sizes, perm,
+            self.codebook.centroids_device(), jnp.asarray(queries),
+            jnp.int32(n_valid), mask_dev, pre_eps, post_eps,
+            scorer=self._leaf_scorer(), **common)
         return np.asarray(idx), np.asarray(dists)
 
     def _check_built(self):

@@ -558,8 +558,8 @@ class DynamicSearcher:
     def _extra_slab(self, d: int):
         """Device-resident delta slab (adds since build + updated rows),
         cached between mutations so per-search host work is O(1) on an
-        unchanged index (VERDICT r3 weak #3: the per-search get_batch loop
-        was O(delta) host work per query batch)."""
+        unchanged index (a per-search get_batch loop would be O(delta)
+        host work per query batch)."""
         if self._extra_cache is None:
             import jax.numpy as jnp
 

@@ -1,7 +1,7 @@
 // Native host-runtime for scann_tpu: concurrent mutable dataset + mutation
 // buffer.
 //
-// TPU-native equivalent of the reference's lock-free mutator
+// Host-side equivalent of the reference's lock-free mutator
 // (reference: src/mutator/mod.rs — crossbeam SegQueue MutationBuffer
 // :76-150, ArcSwap/DashMap MutableDataset :233-491). Device arrays are
 // immutable snapshots, so the mutable state lives host-side in this C++

@@ -1,8 +1,8 @@
-"""TPU compute kernels: batched distances, top-k selection, LUT16 scoring,
-asymmetric (quantized-database) scoring.
+"""Device compute kernels: batched distances, top-k selection, LUT16
+scoring, asymmetric (quantized-database) scoring.
 
 This package replaces the reference's SIMD layer (reference: src/simd/,
-src/distance_measures/) with XLA programs built around MXU matmuls and
+src/distance_measures/) with XLA programs built around matrix products and
 Pallas kernels for the ops XLA cannot fuse well on its own.
 """
 

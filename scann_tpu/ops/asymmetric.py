@@ -2,8 +2,8 @@
 
 Replaces the reference's AVX2 dequantize-inside-FMA loops
 (reference: src/distance_measures/one_to_many_asymmetric.rs:25-51 int8,
-:268-316 bf16, :327-377 fp8). On TPU the whole computation folds into one
-MXU matmul using the affine structure of the codec:
+:268-316 bf16, :327-377 fp8). The whole computation folds into one
+matrix product using the affine structure of the codec:
 
     d' = C * scale + offset            (C = stored codes as f32)
     q . d'  = scale * (q . C) + offset * sum(q)
@@ -11,9 +11,8 @@ MXU matmul using the affine structure of the codec:
 
 so SquaredL2 / L2 / Dot / Cosine against the *dequantized* database need only
 ``Q @ C^T`` plus per-row constants — no dequantized copy of the database is
-ever materialized in HBM for the norm terms. (The code cast C -> f32 for the
-matmul is the one materialization XLA performs; a fused Pallas variant can
-stream u8 tiles, planned.)
+ever materialized for the norm terms. (The code cast C -> f32 for the
+product is the one materialization XLA performs.)
 
 For bf16/fp8 databases scale=1, offset=0 and the cast is a native dtype
 conversion.
@@ -35,7 +34,6 @@ def asymmetric_many_to_many(
     scale: float = 1.0,
     offset: float = 0.0,
     precision=jax.lax.Precision.HIGHEST,
-    codes_transposed: bool = False,
 ) -> jnp.ndarray:
     """[B, N] distances between f32 queries and an affine-quantized database.
 
@@ -43,25 +41,17 @@ def asymmetric_many_to_many(
         measure: SQUARED_L2 / L2 / DOT_PRODUCT / COSINE /
             GENERAL_INNER_PRODUCT.
         queries: [B, D] f32.
-        db_codes: [N, D] uint8 / bf16 / fp8 stored codes — or [D, N] when
-            ``codes_transposed`` (the Pallas fast path: u8 tiles stream
-            HBM->VMEM and convert on-chip, no f32 database copy in HBM).
+        db_codes: [N, D] uint8 / bf16 / fp8 stored codes.
         db_sq_norms: [N] f32 squared norms of the *dequantized* rows.
         scale, offset: codec affine parameters (dequant = code*scale+offset).
     """
     queries = queries.astype(jnp.float32)
-    if codes_transposed:
-        from scann_tpu.ops.pallas_kernels import int8_dots_auto
-
-        raw_dots = int8_dots_auto(queries, db_codes)
-    else:
-        c = db_codes.astype(jnp.float32)
-        raw_dots = jax.lax.dot_general(
-            queries, c,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=precision,
-        )
+    raw_dots = jax.lax.dot_general(
+        queries, db_codes.astype(jnp.float32),
+        dimension_numbers=(((1,), (1,)), ((), ())),
+        preferred_element_type=jnp.float32,
+        precision=precision,
+    )
     # offset/scale may be traced scalars; keep the math branch-free.
     dots = scale * raw_dots + offset * jnp.sum(queries, axis=1, keepdims=True)
 

@@ -1,10 +1,10 @@
-"""Batched distance computation as MXU matmul programs.
+"""Batched distance computation as matrix-product programs.
 
 The reference computes distances with AVX2 one-to-many loops that keep the
 query in registers and stream database rows (reference:
 src/simd/x86.rs:194-346, src/distance_measures/one_to_many.rs:228-255,
-src/distance_measures/many_to_many.rs:301-373). On TPU the same computation
-is a single matmul on the MXU:
+src/distance_measures/many_to_many.rs:301-373). On a device the same
+computation is a single matrix product:
 
     squared_l2(Q, D) = ||q||^2 + ||d||^2 - 2 Q @ D^T
 
@@ -52,7 +52,7 @@ class DistanceMeasure(enum.Enum):
 
     @property
     def is_matmul_friendly(self) -> bool:
-        """True when the [B,N] distance matrix reduces to one MXU matmul."""
+        """True when the [B,N] distance matrix reduces to one matmul."""
         return self in (
             DistanceMeasure.SQUARED_L2,
             DistanceMeasure.L2,
@@ -103,10 +103,11 @@ def squared_norms(x: jnp.ndarray) -> jnp.ndarray:
 def _cross_dot(
     queries: jnp.ndarray, db: jnp.ndarray, precision=jax.lax.Precision.HIGHEST
 ) -> jnp.ndarray:
-    """[B,D] x [N,D] -> [B,N] dot products on the MXU.
+    """[B,D] x [N,D] -> [B,N] dot products.
 
-    Exact search uses HIGHEST precision (f32 via multi-pass bf16 on the MXU);
-    approximate scoring paths pass a lower precision explicitly.
+    Exact search uses HIGHEST precision (true f32: without it an NVIDIA GPU
+    may run the product in TF32); approximate scoring paths pass a lower
+    precision explicitly.
     """
     return jax.lax.dot_general(
         queries,
@@ -126,7 +127,7 @@ def many_to_many(
 ) -> jnp.ndarray:
     """Distance matrix [B, N] between ``queries`` [B, D] and ``db`` [N, D].
 
-    Matmul-friendly measures run as one MXU matmul plus a fused score
+    Matmul-friendly measures run as one matmul plus a fused score
     transform; L1/Hamming (no bilinear form) stream the database in chunks so
     the broadcasted [B, chunk, D] intermediate stays on-chip.
     """

@@ -3,17 +3,17 @@
 Replaces the reference's scalar LUT loop and AVX2 PSHUFB batch kernel
 (reference: src/hashes/lut.rs:74-82, src/hashes/lut16_simd.rs:172-299).
 
-TPU has no byte-shuffle instruction; the 16-way (or C-way) table lookup is
-expressed two ways:
+A device has no byte-shuffle batch instruction to mirror PSHUFB; the 16-way
+(or C-way) table lookup is expressed two ways:
 
   * **one-hot matmul** (C <= 32): per code chunk build ``onehot [T, S*C]``
-    on the fly (a VPU compare against an iota), then one MXU matmul with the
+    on the fly (a compare against an iota), then one matmul with the
     flattened tables ``[B, S*C]``. The lookup becomes dense FLOPs — 2*C more
-    MACs than the scalar sum, but they run on the MXU at full rate and the
-    one-hot never touches HBM (XLA fuses the compare into the matmul's
-    operand production per tile; the Pallas variant makes this explicit).
+    MACs than the scalar sum, but they run on the matrix units and the
+    one-hot need not reach device memory when XLA fuses the compare into
+    the matmul's operand production.
   * **gather** (large C, e.g. 256): ``take_along_axis`` per subspace,
-    summed — VPU-bound but linear in C=0 work.
+    summed — elementwise work linear in C.
 
 Both stream codes in chunks so intermediates stay on-chip-sized.
 """

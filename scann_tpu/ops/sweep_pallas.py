@@ -1,54 +1,53 @@
-"""Fused bf16 block-min sweep: the TPU-native high-throughput sweep.
+"""Block-min sweep: a bf16 (or int8) streaming scorer whose [B, N] score
+matrix never reaches device memory.
 
-This is a capability the reference cannot express on CPU: a *half-precision
-exact* sweep whose [B, N] score matrix never exists in HBM. The database is
-stored once as bf16 rows augmented with their squared norm, so the entire
-distance computation is ONE MXU matmul per tile:
+The database is stored once as rows augmented with their squared norm, so
+the whole distance computation is ONE matrix product per tile:
 
     row  = [x, ||x||^2, 0...]          (bf16, built once at index time)
     q'   = [-2q, 1, 0...]              (squared-L2)
     score = row . q' = ||x||^2 - 2 q.x (rank-equivalent to squared-L2)
 
-Each [tile_n, B] score block is reduced r:1 in VMEM (min + argmin), so HBM
-write traffic is 2/r of the score matrix. The [N/r, B] block minima feed an
-approximate top-pre_k, and an exact f32 re-rank of the pre_k survivors
-restores full-precision distances. Invalid/padded rows carry a huge value in
-the norm slot, so masking costs nothing in-kernel.
+Each score tile is reduced r:1 (min + argmin per block of r consecutive
+rows) before it leaves the chip's registers, so only the query-major
+[B, N/r] block minima are written. They feed an approximate top-pre_k, and
+an exact f32 re-rank of the pre_k survivors restores full-precision
+distances. Invalid/padded rows carry a huge value in the norm slot, so
+masking costs nothing in-kernel. Recall loss comes only from bf16 rounding
+and the one-candidate-per-r-block cap, both recovered by the exact re-rank
+for practical (k, r).
 
-Role in the framework: this replaces the reference's production searchers
-for databases that fit HBM — measured 129k QPS at recall@10 ~0.995 on
-1.18M x 100d (B=1024) vs 46k for the packed-PQ sweep and 37k for the
-unpacked LUT16 sweep. The sweep runs at the chip's effective HBM bandwidth
-(DMA-floor-bound), i.e. speed of light for a streaming scorer. Recall loss
-comes only from bf16 rounding and the one-candidate-per-r-block cap, both
-recovered by the exact re-rank for practical (k, r).
+Two formulations of the block minima: ``block_minima_pallas`` (a
+Triton-route Pallas kernel, served on the GPU) and ``block_minima_xla``
+(the plain matmul + reshape-min, served on the CPU and the reference the
+kernel is tested against). PERF.md "Kernel decisions at bring-up" has the
+measurement that chose between them.
 
 Reference counterpart: the brute-force searcher + reordering helper
-(src/brute_force/searcher.rs:77-139, src/utils/reordering.rs:22-94) — the
-architecture here is TPU-first, not a translation.
+(src/brute_force/searcher.rs:77-139, src/utils/reordering.rs:22-94).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from scann_tpu.ops.distances import DistanceMeasure, gathered_distances
 from scann_tpu.ops.topk import approx_top_k_smallest, top_k_smallest
-from scann_tpu.types import MASKED_DISTANCE, align_up, cdiv
+from scann_tpu.types import MASKED_DISTANCE, align_up, use_gpu_kernels
 
 # Sentinel carried in the augmented norm column of invalid rows. bf16-exact
 # (a power of two) and far above any real score, far below bf16 max.
 BLOCK_MASK_VALUE = float(2.0 ** 30)
 
-# int8 sweep: the squared norm is carried as THREE base-128 digits in the
-# row's padding lanes (digits in [-64, 63], slot multipliers sn * (1, 128,
+# int8 sweep: the squared norm is carried as THREE base-128 digits in
+# columns past the data (digits in [-64, 63], slot multipliers sn * (1, 128,
 # 16384) with sn a power of two — every multiplier and digit is exact in
 # bf16, so the decoded norm is exact to sn/2). Max encodable magnitude:
 INT8_NORM_DIGIT_MAX = 63 + 63 * 128 + 63 * 16384  # 1,040,319
@@ -56,9 +55,15 @@ INT8_NORM_DIGIT_MAX = 63 + 63 * 128 + 63 * 16384  # 1,040,319
 INT8_NORM_REAL_MAX = 400_000
 
 
-def augmented_dim(d: int) -> int:
-    """Minor dim of the augmented row: original + norm slot, sublane-aligned."""
-    return align_up(d + 1, 8)
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+def augmented_dim(d: int, extra: int = 1) -> int:
+    """Minor dim of the augmented row: original + ``extra`` norm columns,
+    rounded up to a power of two (the Triton-route kernel loads whole rows,
+    and Triton tensors have power-of-two sizes)."""
+    return max(_pow2_at_least(d + extra), 16)
 
 
 def shuffle_stride_for(n: int) -> int:
@@ -72,8 +77,6 @@ def shuffle_stride_for(n: int) -> int:
     device: without x64, int64 silently truncates to int32 and ``pos * s``
     overflows past ~2^31 — measured as recall collapsing to 0.003 at 1.18M
     while small-n CPU tests stayed green.)"""
-    import math
-
     s = max(int(0.6180339887 * n) | 1, 1)
     while math.gcd(s, n) != 1:
         s += 2
@@ -95,7 +98,7 @@ def build_augmented_db(db: np.ndarray, n_valid: int, measure: DistanceMeasure,
     cluster-sorted (crawl order, label order); without the shuffle the best
     blocks for a query cluster in contiguous block-minima columns and the
     approximate candidate selection degrades (same hazard as the tree-AH
-    partition-major layout, BENCH_NOTES round 2).
+    partition-major layout).
     """
     db = np.asarray(db, dtype=np.float32)
     n, d = db.shape
@@ -140,22 +143,22 @@ def build_int8_augmented_db(db: np.ndarray, n_valid: int,
 
     - ``codes[:, :d]`` = per-dimension symmetric int8 (scale ``s_j =
       max|x_j| / 127``, folded into the query head at search time so the
-      kernel is one int8->bf16 convert + the same MXU matmul);
+      kernel is one int8->bf16 convert + the same matrix product);
     - ``codes[:, d:d+3]`` = the squared norm as base-128 digits (see
       INT8_NORM_DIGIT_MAX) for SQUARED_L2, zeros for dot/cosine;
     - padded/invalid rows carry the all-63 mask digits (decoded magnitude
       INT8_NORM_DIGIT_MAX * sn, >2.5x any real score — same sentinel role
       as BLOCK_MASK_VALUE in the bf16 layout).
 
-    The norm digits live in lanes the (8,128) layout pads anyway (d=100 ->
-    104 minor), so the norm costs zero extra bytes; its resolution sn/2 is
-    ~200x finer than the bf16 layout's one-slot norm. Quantization noise in
-    the -2q.x term is the only recall cost, recovered by the exact re-rank
-    exactly as bf16 rounding is.
+    The norm digits live in columns the power-of-two row width pads anyway
+    (d=100 -> 128), so the norm costs zero extra bytes; its resolution sn/2
+    is ~200x finer than the bf16 layout's one-slot norm. Quantization noise
+    in the -2q.x term is the only recall cost, recovered by the exact
+    re-rank exactly as bf16 rounding is.
     """
     db = np.asarray(db, dtype=np.float32)
     n, d = db.shape
-    d1 = align_up(d + 3, 8)
+    d1 = augmented_dim(d, extra=3)
     n_pad = max(align_up(max(n_valid, 1), tile_n), pad_rows_to)
     rows = db
     if measure == DistanceMeasure.COSINE:
@@ -244,291 +247,152 @@ def _augment_queries(queries: jnp.ndarray, measure: DistanceMeasure,
     return out.astype(jnp.bfloat16)
 
 
-def _block_min_kernel(db_ref, q_ref, *refs, r: int):
-    # int8 rows convert to bf16 in VMEM (no-op for bf16 rows); the matmul
-    # stays hidden behind the halved HBM stream
-    if len(refs) == 3:                             # (pen, vals, locs)
-        pen_ref, vals_ref, locs_ref = refs
-    else:
-        pen_ref, (vals_ref, locs_ref) = None, refs
-    scores = jax.lax.dot_general(
-        db_ref[:].astype(jnp.bfloat16), q_ref[:],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )                                              # [TN, B] f32
-    tn, b = scores.shape
-    s3 = scores.reshape(tn // r, r, b)
-    if pen_ref is not None:
-        # restrict allowlist as an additive per-row penalty (0 allowed /
-        # BLOCK_MASK_VALUE denied), applied BEFORE the r:1 reduction so a
-        # denied row can never occupy its block's candidate slot
-        s3 = s3 + pen_ref[:].astype(jnp.float32)[:, :, None]
-    vals_ref[:] = jnp.min(s3, axis=1)
-    locs_ref[:] = jnp.argmin(s3, axis=1).astype(jnp.int32)
+# Block sizes of the Triton-route kernel (powers of two; chosen by
+# measurement on an H100, PERF.md "Kernel decisions at bring-up"):
+# queries per program, rows per matrix-product tile, and rows each program
+# walks with its query tile held (the inner loop Triton software-pipelines).
+BLOCK_B = 64
+BLOCK_N = 128
+ROWS_PER_PROGRAM = 1024
+NUM_WARPS = 4
+NUM_STAGES = 3
+# rows per chunk of the plain formulation's [B, chunk] f32 score matrix
+XLA_CHUNK_ROWS = 65536
 
 
-def _block_min_qmajor_kernel(db_ref, q_ref, *refs, r: int):
-    """Block-min with query-major OUTPUT: the same contiguous r:1 reduction
-    as the row-major kernel (major-dim reshape is layout-free), then an
-    in-kernel transpose of the small [128, B] minima tile, so the block
-    minima land in HBM as [B, N/r] — already the layout ``approx_min_k``
-    wants. This removes the [N/r, B] -> [B, N/r] transpose the row-major
-    kernel forces on the host program (a full read+write of the minima
-    array, ~2 ms at B=1024, N=1.18M — measured round 3).
-
-    Each grid step covers 128*r rows so the output tile is a full 128-lane
-    block; blocks stay contiguous, so candidate reconstruction is the
-    standard ``blk * r + loc``.
-    """
-    if len(refs) == 3:
-        pen_ref, vals_ref, locs_ref = refs
-    else:
-        pen_ref, (vals_ref, locs_ref) = None, refs
-    scores = jax.lax.dot_general(
-        db_ref[:].astype(jnp.bfloat16), q_ref[:],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )                                              # [STEP, B] f32
-    tn, b = scores.shape
-    s3 = scores.reshape(tn // r, r, b)
-    if pen_ref is not None:
-        s3 = s3 + pen_ref[:].astype(jnp.float32)[:, :, None]
-    vals_ref[:] = jnp.min(s3, axis=1).T            # [B, 128]
-    locs_ref[:] = jnp.argmin(s3, axis=1).astype(jnp.int32).T
+def _block_reduce(s, r: int, top2: bool):
+    """[BB, T] scores -> per r-row block (min, argmin[, 2nd min, argmin]),
+    each [BB, T/r]. Ties resolve to the lowest in-block offset."""
+    bb, t = s.shape
+    s3 = s.reshape(bb, t // r, r)
+    iota = jax.lax.broadcasted_iota(jnp.int32, s3.shape, 2)
+    m1 = jnp.min(s3, axis=2)
+    l1 = jnp.min(jnp.where(s3 == m1[:, :, None], iota, r), axis=2)
+    if not top2:
+        return m1, l1
+    s3 = jnp.where(iota == l1[:, :, None], jnp.inf, s3)
+    m2 = jnp.min(s3, axis=2)
+    l2 = jnp.min(jnp.where(s3 == m2[:, :, None], iota, r), axis=2)
+    return m1, l1, m2, l2
 
 
-def _block_min_qmajor_compact_kernel(db_ref, q_ref, *refs, r: int):
-    """Q-major block-min with COMPACT minima: bf16 values + u8 within-block
-    offsets (requires r <= 256). The minima arrays are pure HBM traffic —
-    written by this kernel, then read once by ``approx_min_k`` — and at
-    B=1024, N=1.18M they were 152 MB/batch as f32+i32, ~40% of the sweep's
-    total stream. bf16+u8 cuts that to 57 MB. Precision: the bf16 rounding
-    (rel. 2^-8) only perturbs the pre_k selection boundary; the exact f32
-    re-rank restores all final distances (measured recall-neutral at
-    pre_k=100, 1.18M — see BENCH_NOTES)."""
-    if len(refs) == 3:
-        pen_ref, vals_ref, locs_ref = refs
-    else:
-        pen_ref, (vals_ref, locs_ref) = None, refs
-    scores = jax.lax.dot_general(
-        db_ref[:].astype(jnp.bfloat16), q_ref[:],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )                                              # [STEP, B] f32
-    tn, b = scores.shape
-    s3 = scores.reshape(tn // r, r, b)
-    if pen_ref is not None:
-        s3 = s3 + pen_ref[:].astype(jnp.float32)[:, :, None]
-    vals_ref[:] = jnp.min(s3, axis=1).T.astype(jnp.bfloat16)
-    locs_ref[:] = jnp.argmin(s3, axis=1).astype(jnp.uint8).T
+def _block_min_kernel(q_ref, db_ref, *refs, r: int, block_n: int,
+                      steps: int, top2: bool, has_pen: bool):
+    """One program: a [BB, D1] query tile against ``steps`` consecutive
+    [block_n, D1] row tiles. Each tile's scores live only in registers:
+    bf16 x bf16 -> f32 on the tensor cores, + the allow penalty, then the
+    r:1 reduce; only the [BB, block_n/r] minima are stored (query-major, so
+    no transpose follows)."""
+    pen_ref = refs[0] if has_pen else None
+    outs = refs[1:] if has_pen else refs
+    q = q_ref[...]
+    w = block_n // r
+
+    def step(i, carry):
+        x = db_ref[pl.ds(i * block_n, block_n), :].astype(jnp.bfloat16)
+        s = pl.dot(q, x, trans_b=True)                     # [BB, block_n]
+        if pen_ref is not None:
+            # restrict allowlist as an additive per-row penalty (0 allowed
+            # / mask value denied), applied BEFORE the r:1 reduction so a
+            # denied row can never occupy its block's candidate slot
+            s = s + pen_ref[pl.ds(i * block_n, block_n)].astype(
+                jnp.float32)[None, :]
+        for o_ref, v in zip(outs, _block_reduce(s, r, top2)):
+            o_ref[:, pl.ds(i * w, w)] = v
+        return carry
+
+    jax.lax.fori_loop(0, steps, step, 0)
 
 
-def qmajor_step_rows(r: int) -> int:
-    """Rows per q-major grid step: the minima block's lane dim must be a
-    128-multiple, so each step covers 128 blocks = 128*r rows."""
-    return 128 * r
+def _tile_sizes(n: int, r: int):
+    """(block_n, rows_per_program) for ``n`` rows: powers of two that
+    divide n (rows are padded to a power-of-two tile at index time)."""
+    rows = math.gcd(n, ROWS_PER_PROGRAM)
+    block_n = max(math.gcd(rows, BLOCK_N), r)
+    rows = max(rows, block_n)
+    if n % rows or rows % r:
+        raise ValueError(f"{n} rows do not tile into r={r} blocks")
+    return block_n, rows
 
 
-# scores + iota intermediates per step: b * step * 8 bytes; cap well below
-# v5e VMEM so the pipeline's in/out buffers still fit
-_QMAJOR_VMEM_BYTES = 80 * 1024 * 1024
+@functools.partial(jax.jit, static_argnames=("r", "top2", "interpret"))
+def block_minima_pallas(q_aug, db_aug, penalty=None, *, r: int,
+                        top2: bool = False, interpret: bool = False):
+    """Triton-route Pallas block-min sweep.
 
-
-def qmajor_supported(n_rows: int, b: int, r: int) -> bool:
-    step = qmajor_step_rows(r)
-    return n_rows % step == 0 and b * step * 8 <= _QMAJOR_VMEM_BYTES
-
-
-@functools.partial(jax.jit, static_argnames=("r", "interpret", "compact"))
-def block_min_sweep_qmajor_pallas(
-    q_aug: jnp.ndarray, db_aug: jnp.ndarray, r: int = 32,
-    interpret: bool = False, compact: bool = False,
-    penalty: jnp.ndarray | None = None,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Query-major-output sweep: returns (vals [B, N/r] f32, locs [B, N/r]
-    int32 within-block offsets, contiguous blocks). Requires
-    N % (128*r) == 0 — see ``qmajor_supported``. With ``compact=True``
-    (needs r <= 256) the minima land as bf16 + u8 — one third of the
-    f32+i32 HBM traffic; rank-equivalent up to bf16 rounding, which the
-    exact re-rank absorbs. ``penalty`` ([N/r, r] bf16, 0 allowed /
-    BLOCK_MASK_VALUE denied — see ``build_allow_penalty``) fuses a restrict
-    allowlist into the pre-reduction scores (~1% extra stream bytes)."""
+    q_aug [B, D1] bf16, db_aug [N, D1] bf16 or int8 (D1 a power of two,
+    N a multiple of r and of a power-of-two tile), optional ``penalty``
+    ([N/r, r] from ``build_allow_penalty``). Returns query-major
+    (vals [B, N/r] f32, locs [B, N/r] int32 in-block offsets), plus the
+    second-smallest pair when ``top2``."""
     b, d1 = q_aug.shape
     n = db_aug.shape[0]
-    step = qmajor_step_rows(r)
-    blk = pl.BlockSpec((b, 128), lambda i: (0, i), memory_space=pltpu.VMEM)
-    if compact and r > 256:
-        raise ValueError(f"compact q-major minima need r <= 256, got {r}")
-    kern = (_block_min_qmajor_compact_kernel if compact
-            else _block_min_qmajor_kernel)
-    out_dtypes = ((jnp.bfloat16, jnp.uint8) if compact
-                  else (jnp.float32, jnp.int32))
-    in_specs = [
-        pl.BlockSpec((step, d1), lambda i: (i, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((b, d1), lambda i: (0, 0), memory_space=pltpu.VMEM),
-    ]
-    args = (db_aug, q_aug)
-    pen_bytes = 0
+    block_n, rows = _tile_sizes(n, r)
+    bb = min(BLOCK_B, max(_pow2_at_least(b), 16))
+    b_pad = align_up(b, bb)
+    if b_pad != b:
+        q_aug = jnp.pad(q_aug, ((0, b_pad - b), (0, 0)))
+    in_specs = [pl.BlockSpec((bb, d1), lambda j, i: (j, 0)),
+                pl.BlockSpec((rows, d1), lambda j, i: (i, 0))]
+    args = [q_aug, db_aug]
     if penalty is not None:
-        in_specs.append(pl.BlockSpec((128, r), lambda i: (i, 0),
-                                     memory_space=pltpu.VMEM))
-        args = (db_aug, q_aug, penalty)
-        pen_bytes = n * penalty.dtype.itemsize
-    return pl.pallas_call(
-        functools.partial(kern, r=r),
-        out_shape=(jax.ShapeDtypeStruct((b, n // r), out_dtypes[0]),
-                   jax.ShapeDtypeStruct((b, n // r), out_dtypes[1])),
-        grid=(cdiv(n, step),),
+        in_specs.append(pl.BlockSpec((rows,), lambda j, i: (i,)))
+        args.append(penalty.reshape(-1))
+    n_out = 4 if top2 else 2
+    out_spec = pl.BlockSpec((bb, rows // r), lambda j, i: (j, i))
+    out_shape = (jax.ShapeDtypeStruct((b_pad, n // r), jnp.float32),
+                 jax.ShapeDtypeStruct((b_pad, n // r), jnp.int32))
+    outs = pl.pallas_call(
+        functools.partial(_block_min_kernel, r=r, block_n=block_n,
+                          steps=rows // block_n, top2=top2,
+                          has_pen=penalty is not None),
+        out_shape=out_shape * (n_out // 2),
+        # query blocks vary fastest, so the programs sharing a row tile run
+        # together and the tile is read from device memory once
+        grid=(b_pad // bb, n // rows),
         in_specs=in_specs,
-        out_specs=(blk, blk),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * b * d1 * n,
-            bytes_accessed=(d1 * n * db_aug.dtype.itemsize + pen_bytes
-                            + (n // r) * b * (3 if compact else 8)),
-            transcendentals=0,
-        ),
+        out_specs=(out_spec,) * n_out,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
         interpret=interpret,
+        name="block_min_sweep",
     )(*args)
+    return tuple(o[:b] for o in outs)
 
 
-def _block_min2_kernel(db_ref, q_ref, *refs, r: int):
-    """Per-block (min, argmin) AND (2nd-min, 2nd-argmin) via a tournament
-    tree — two same-block near-neighbors both survive to the re-rank,
-    removing the one-candidate-per-block recall ceiling."""
-    if len(refs) == 5:
-        pen_ref, v1_ref, l1_ref, v2_ref, l2_ref = refs
-    else:
-        pen_ref, (v1_ref, l1_ref, v2_ref, l2_ref) = None, refs
-    scores = jax.lax.dot_general(
-        db_ref[:].astype(jnp.bfloat16), q_ref[:],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )                                              # [TN, B] f32
-    tn, b = scores.shape
-    s3 = scores.reshape(tn // r, r, b)
-    if pen_ref is not None:
-        s3 = s3 + pen_ref[:].astype(jnp.float32)[:, :, None]
-    iota = jax.lax.broadcasted_iota(jnp.int32, s3.shape, 1)
-
-    def _pairs(x):
-        """[TB, m, b] -> ([TB, m/2, b], [TB, m/2, b]) via contiguous pairs
-        (strided slices lower to unsupported gathers in mosaic; reshape +
-        static index lowers to plain slices)."""
-        tb, m, bb_ = x.shape
-        x4 = x.reshape(tb, m // 2, 2, bb_)
-        return x4[:, :, 0], x4[:, :, 1]
-
-    # level 1: adjacent pairs -> (winner, loser)
-    a, bb = _pairs(s3)
-    ia, ib = _pairs(iota)
-    ta = a <= bb
-    m1, l1 = jnp.where(ta, a, bb), jnp.where(ta, ia, ib)
-    m2, l2 = jnp.where(ta, bb, a), jnp.where(ta, ib, ia)
-    # higher levels: merge (m1, m2) runs — the two smallest of the union
-    # are min(m1a, m1b) and min(loser-of-that, m2a, m2b)
-    while m1.shape[1] > 1:
-        m1a, m1b = _pairs(m1)
-        l1a, l1b = _pairs(l1)
-        m2a, m2b = _pairs(m2)
-        l2a, l2b = _pairs(l2)
-        ta = m1a <= m1b
-        m1 = jnp.where(ta, m1a, m1b)
-        l1 = jnp.where(ta, l1a, l1b)
-        mo = jnp.where(ta, m1b, m1a)             # the losing first-min
-        lo = jnp.where(ta, l1b, l1a)
-        t2 = m2a <= m2b
-        c2 = jnp.where(t2, m2a, m2b)
-        lc2 = jnp.where(t2, l2a, l2b)
-        to = mo <= c2
-        m2 = jnp.where(to, mo, c2)
-        l2 = jnp.where(to, lo, lc2)
-    v1_ref[:] = m1[:, 0]
-    l1_ref[:] = l1[:, 0]
-    v2_ref[:] = m2[:, 0]
-    l2_ref[:] = l2[:, 0]
-
-
-@functools.partial(jax.jit, static_argnames=("tile_n", "r", "interpret"))
-def block_min_sweep_pallas(
-    q_aug: jnp.ndarray, db_aug: jnp.ndarray, tile_n: int = 2048, r: int = 32,
-    interpret: bool = False, penalty: jnp.ndarray | None = None,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Stream [N_pad, D1] bf16 rows, emit per-r-block (min, argmin).
-
-    Returns (vals [N/r, B] f32, locs [N/r, B] int32). Runs at the DMA floor:
-    the matmul+reduce hide entirely behind the HBM stream (measured).
-    ``penalty``: optional [N/r, r] allowlist penalty (build_allow_penalty).
-    """
-    b, d1 = q_aug.shape
+@functools.partial(jax.jit, static_argnames=("r", "top2"))
+def block_minima_xla(q_aug, db_aug, penalty=None, *, r: int,
+                     top2: bool = False):
+    """Plain formulation of ``block_minima_pallas`` (same inputs, same
+    query-major outputs): a bf16 matrix product per chunk of rows with f32
+    accumulation, then a reshape-min. XLA writes each [B, chunk] f32 score
+    chunk to memory and reads it back for the reduce."""
+    b = q_aug.shape[0]
     n = db_aug.shape[0]
-    in_specs = [
-        pl.BlockSpec((tile_n, d1), lambda i: (i, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((b, d1), lambda i: (0, 0), memory_space=pltpu.VMEM),
-    ]
-    args = (db_aug, q_aug)
-    if penalty is not None:
-        in_specs.append(pl.BlockSpec((tile_n // r, r), lambda i: (i, 0),
-                                     memory_space=pltpu.VMEM))
-        args = (db_aug, q_aug, penalty)
-    return pl.pallas_call(
-        functools.partial(_block_min_kernel, r=r),
-        out_shape=(jax.ShapeDtypeStruct((n // r, b), jnp.float32),
-                   jax.ShapeDtypeStruct((n // r, b), jnp.int32)),
-        grid=(cdiv(n, tile_n),),
-        in_specs=in_specs,
-        out_specs=(pl.BlockSpec((tile_n // r, b), lambda i: (i, 0),
-                                memory_space=pltpu.VMEM),
-                   pl.BlockSpec((tile_n // r, b), lambda i: (i, 0),
-                                memory_space=pltpu.VMEM)),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * b * d1 * n,
-            bytes_accessed=d1 * n * db_aug.dtype.itemsize + (n // r) * b * 8,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(*args)
+    chunk = min(align_up(XLA_CHUNK_ROWS, r), n)
+    pen = None if penalty is None else penalty.reshape(-1)
+    n_out = 4 if top2 else 2
+    init = tuple(jnp.zeros((b, n // r), dt)
+                 for dt in (jnp.float32, jnp.int32) * (n_out // 2))
 
+    def body(c, outs):
+        # the last chunk is clamped to end at n; the overlap is recomputed
+        # identically
+        lo = jnp.minimum(c * chunk, n - chunk)
+        rows = jax.lax.dynamic_slice_in_dim(db_aug, lo, chunk)
+        s = jax.lax.dot_general(
+            q_aug, rows.astype(jnp.bfloat16),
+            dimension_numbers=(((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.float32)            # [B, chunk]
+        if pen is not None:
+            s = s + jax.lax.dynamic_slice_in_dim(
+                pen, lo, chunk).astype(jnp.float32)[None, :]
+        return tuple(jax.lax.dynamic_update_slice_in_dim(o, v, lo // r,
+                                                         axis=1)
+                     for o, v in zip(outs, _block_reduce(s, r, top2)))
 
-@functools.partial(jax.jit, static_argnames=("tile_n", "r", "interpret"))
-def block_min2_sweep_pallas(
-    q_aug: jnp.ndarray, db_aug: jnp.ndarray, tile_n: int = 2048, r: int = 32,
-    interpret: bool = False, penalty: jnp.ndarray | None = None,
-):
-    """Like ``block_min_sweep_pallas`` but emits the TWO smallest per block:
-    (v1, l1, v2, l2), each [N/r, B]. Doubles the (small) block-minima HBM
-    writes; the db stream and matmul are unchanged."""
-    b, d1 = q_aug.shape
-    n = db_aug.shape[0]
-    blk = pl.BlockSpec((tile_n // r, b), lambda i: (i, 0),
-                       memory_space=pltpu.VMEM)
-    in_specs = [
-        pl.BlockSpec((tile_n, d1), lambda i: (i, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((b, d1), lambda i: (0, 0), memory_space=pltpu.VMEM),
-    ]
-    args = (db_aug, q_aug)
-    if penalty is not None:
-        in_specs.append(pl.BlockSpec((tile_n // r, r), lambda i: (i, 0),
-                                     memory_space=pltpu.VMEM))
-        args = (db_aug, q_aug, penalty)
-    return pl.pallas_call(
-        functools.partial(_block_min2_kernel, r=r),
-        out_shape=(jax.ShapeDtypeStruct((n // r, b), jnp.float32),
-                   jax.ShapeDtypeStruct((n // r, b), jnp.int32),
-                   jax.ShapeDtypeStruct((n // r, b), jnp.float32),
-                   jax.ShapeDtypeStruct((n // r, b), jnp.int32)),
-        grid=(cdiv(n, tile_n),),
-        in_specs=in_specs,
-        out_specs=(blk, blk, blk, blk),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * b * d1 * n,
-            bytes_accessed=d1 * n * db_aug.dtype.itemsize + (n // r) * b * 16,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(*args)
+    return jax.lax.fori_loop(0, -(-n // chunk), body, init)
 
 
 def build_allow_penalty(mask, n_pad: int, r: int, inv_perm=None,
@@ -539,7 +403,7 @@ def build_allow_penalty(mask, n_pad: int, r: int, inv_perm=None,
     the sweep's STORED row order. ``inv_perm`` maps stored position ->
     original point id (the shuffle's inverse table; None = identity).
     Padding rows get 0 — their augmented norm slot already carries the mask
-    sentinel. ~N*2 bytes of extra kernel stream (≈1% of the bf16 rows).
+    sentinel. N*2 bytes of extra kernel stream (under 1% of the bf16 rows).
 
     ``mask_value`` defaults to 4x the bf16 layout's sentinel so a denied
     row's penalized score clears the validity cut even if its raw score is
@@ -553,51 +417,28 @@ def build_allow_penalty(mask, n_pad: int, r: int, inv_perm=None,
     return pen.reshape(n_pad // r, r).astype(jnp.bfloat16)
 
 
-def sweep_block_candidates(q_aug, db_aug, *, pre_k: int, r: int, tile_n: int,
-                           interpret: bool, penalty=None,
-                           top2: bool = False):
+def sweep_block_candidates(q_aug, db_aug, *, pre_k: int, r: int,
+                           penalty=None, top2: bool = False):
     """Block-min sweep over (a shard block of) the augmented rows ->
     (pv [B, pre_k] raw sweep scores f32, cand [B, pre_k] int32 local row
-    indices). Picks the transpose-free q-major kernel when supported (TPU
-    serving path), else the row-major + transpose formulation. Shared by
-    the single-device pipeline and the sharded wrapper's shard body.
+    indices). Shared by the single-device pipeline and the sharded
+    wrapper's shard body; the formulation follows the platform
+    (types.use_gpu_kernels).
 
-    ``top2=True`` keeps the TWO smallest per selected block (tournament
-    kernel), returning [B, 2*pre_k] pv/cand — removes the
-    one-candidate-per-block collision ceiling at the cost of doubled
-    block-minima writes and re-rank width."""
-    if top2:
-        v1, l1, v2, l2 = block_min2_sweep_pallas(
-            q_aug, db_aug, tile_n=tile_n, r=r, interpret=interpret,
-            penalty=penalty)
-        pv1, blk = approx_top_k_smallest(v1.T, pre_k)    # [B, pre_k]
-        loc1 = jnp.take_along_axis(l1.T, blk, axis=1)
-        pv2 = jnp.take_along_axis(v2.T, blk, axis=1)
-        loc2 = jnp.take_along_axis(l2.T, blk, axis=1)
-        pv = jnp.concatenate([pv1, pv2], axis=1)         # [B, 2*pre_k]
-        cand = jnp.concatenate([blk * r + loc1, blk * r + loc2], axis=1)
-        return pv, cand
-    if not interpret and qmajor_supported(db_aug.shape[0],
-                                          q_aug.shape[0], r):
-        # TPU path only: XLA:CPU (interpret mode) miscompiles the fold
-        # program at some batch shapes (compile-time CHECK crash / hang,
-        # jax 0.8 era); CPU tests cover q-major via the kernel-level
-        # parity test and take the row-major path here.
-        compact = r <= 256
-        vals, locs = block_min_sweep_qmajor_pallas(
-            q_aug, db_aug, r=r, interpret=interpret, compact=compact,
-            penalty=penalty)
-        pv, blk = approx_top_k_smallest(vals, pre_k)     # [B, pre_k]
-        pv = pv.astype(jnp.float32)
-        local = jnp.take_along_axis(locs, blk, axis=1).astype(jnp.int32)
-        cand = blk * r + local                           # global point ids
+    ``top2=True`` keeps the TWO smallest per selected block, returning
+    [B, 2*pre_k] pv/cand — removes the one-candidate-per-block collision
+    ceiling at the cost of doubled block-minima writes and re-rank width."""
+    if use_gpu_kernels():
+        minima = block_minima_pallas(q_aug, db_aug, penalty, r=r, top2=top2)
     else:
-        vals, locs = block_min_sweep_pallas(q_aug, db_aug, tile_n=tile_n,
-                                            r=r, interpret=interpret,
-                                            penalty=penalty)
-        pv, blk = approx_top_k_smallest(vals.T, pre_k)   # [B, pre_k]
-        local = jnp.take_along_axis(locs.T, blk, axis=1)
-        cand = blk * r + local                           # global point ids
+        minima = block_minima_xla(q_aug, db_aug, penalty, r=r, top2=top2)
+    pv, blk = approx_top_k_smallest(minima[0], pre_k)      # [B, pre_k]
+    cand = blk * r + jnp.take_along_axis(minima[1], blk, axis=1)
+    if top2:
+        pv2 = jnp.take_along_axis(minima[2], blk, axis=1)
+        loc2 = jnp.take_along_axis(minima[3], blk, axis=1)
+        pv = jnp.concatenate([pv, pv2], axis=1)            # [B, 2*pre_k]
+        cand = jnp.concatenate([cand, blk * r + loc2], axis=1)
     return pv, cand
 
 
@@ -613,15 +454,14 @@ def sweep_approx_in_measure_units(pv, queries, measure: DistanceMeasure):
 
 
 @functools.partial(jax.jit, static_argnames=("pre_k", "k", "measure", "r",
-                                             "tile_n", "interpret", "top2",
-                                             "aug_sn"))
+                                             "top2", "aug_sn"))
 def sweep_search_kernel(
     db_aug, db, db_sq_norms, n_valid, queries,
     pre_eps=jnp.inf, post_eps=jnp.inf, inv_perm=None, aug_scales=None,
     allow_pen=None,
     *, pre_k: int, k: int,
-    measure: DistanceMeasure, r: int = 32, tile_n: int = 2048,
-    interpret: bool = False, top2: bool = False, aug_sn: float = 0.0,
+    measure: DistanceMeasure, r: int = 32, top2: bool = False,
+    aug_sn: float = 0.0,
 ):
     """Full pipeline: block-min sweep -> approx top-pre_k over block
     minima -> exact f32 re-rank -> top-k. One device program.
@@ -654,7 +494,6 @@ def sweep_search_kernel(
         q_aug = _augment_queries(queries, measure, d1)
         mask_cut = BLOCK_MASK_VALUE / 2
     pv, cand = sweep_block_candidates(q_aug, db_aug, pre_k=pre_k, r=r,
-                                      tile_n=tile_n, interpret=interpret,
                                       penalty=allow_pen, top2=top2)
 
     # approximate distance in the measure's own units for pre_eps
@@ -669,7 +508,7 @@ def sweep_search_kernel(
     safe = jnp.clip(cand, 0, rerank_store_rows(db) - 1)
     rows = gather_rerank_rows(db, safe)                  # [B, pre_k, D]
     # norms recomputed from the gathered rows (identical math to the
-    # table; per-element norm gathers cost ~20 ns each on TPU)
+    # table, and no per-element norm gather)
     norms = jnp.sum(rows * rows, axis=-1)
     exact = gathered_distances(measure, queries, rows, norms)
     exact = jnp.where(pre_valid, exact, MASKED_DISTANCE)
@@ -679,8 +518,6 @@ def sweep_search_kernel(
         # stored positions are (id * stride) % n_valid; the rerank store
         # is laid out in the SAME permuted order, so true ids resolve only
         # for the k winners — a [B, k] gather instead of [B, pre_k]
-        # (per-element gathers cost ~20 ns each on TPU; at pre_k=100,
-        # B=1024 the pre-gather translation was ~2 ms of a ~8 ms batch)
         idx = jnp.take(inv_perm, jnp.clip(idx, 0, inv_perm.shape[0] - 1),
                        axis=0)
     missing = (out_vals >= MASKED_DISTANCE / 2) | (out_vals > post_eps)

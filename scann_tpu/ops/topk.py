@@ -6,8 +6,8 @@ TopK BinaryHeap :20-27, FixedTopK :120-127, FastTopNeighbors :263-279) with
 "largest score", which XLA lowers to an efficient on-device partial sort.
 
 Also provides the shard-merge used by the multi-chip searcher: each database
-shard computes a local top-k, the [n_shards, k] partials are all-gathered over
-ICI, and a final top-k over n_shards*k candidates yields the global result.
+shard computes a local top-k, the [n_shards, k] partials are all-gathered
+across devices, and a final top-k over n_shards*k candidates yields the global result.
 """
 
 from __future__ import annotations
@@ -23,9 +23,8 @@ def top_k_smallest(dists: jnp.ndarray, k: int,
     """Smallest-k selection along the last axis.
 
     For large N this runs EXACT two-stage selection: per-tile ``lax.top_k``
-    then a merge top-k over the [n_tiles * k] partials — ``lax.top_k`` is
-    sort-based on TPU, so shrinking the sorted segments is a large win at
-    database scale (measured ~6 ms -> sub-ms at [128, 500k]).
+    then a merge top-k over the [n_tiles * k] partials, which keeps each
+    selection segment short at database scale.
 
     Args:
         dists: [..., N] distances (smaller = closer).
@@ -70,12 +69,11 @@ def top_k_smallest(dists: jnp.ndarray, k: int,
 def approx_top_k_smallest(
     dists: jnp.ndarray, k: int, recall_target: float = 0.95
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Approximate smallest-k via the TPU-native ``lax.approx_min_k``.
+    """Approximate smallest-k via ``lax.approx_min_k``.
 
-    32x faster than exact selection at candidate-selection sizes (measured
-    121ms -> 3.8ms for k=300 over [128, 1.18M]). Use ONLY for pre-rerank
-    candidate stages — the per-entry recall_target loss is recovered by the
-    exact re-rank; final exact top-k stays sort-based.
+    Use ONLY for pre-rerank candidate stages — any per-entry recall_target
+    loss is recovered by the exact re-rank. (On a GPU XLA compiles it as an
+    exact top-k.)
     """
     vals, idx = jax.lax.approx_min_k(dists, k, recall_target=recall_target)
     return vals, idx.astype(jnp.int32)

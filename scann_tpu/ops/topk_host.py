@@ -2,7 +2,7 @@
 (reference: src/brute_force/top_k.rs: TopK heap :20-112, FixedTopK array
 heap :115-251, FastTopNeighbors :263-393).
 
-On TPU the scoring programs use ``lax.top_k`` (ops/topk.py); these classes
+On the device the scoring programs use ``lax.top_k`` (ops/topk.py); these classes
 exist for host-side merging, streaming use-cases, and behavioral parity
 tests.
 """

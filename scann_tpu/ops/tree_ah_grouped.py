@@ -1,28 +1,32 @@
-"""Grouped MXU leaf-scoring kernel for tree-×-AH.
+"""Grouped leaf scoring for tree-×-AH.
 
-Round-1's CSR kernel scored one (query, partition) pair per grid step with a
-VPU select-reduce — S·C·L VPU work per pair, MXU idle, and the one-hot code
-expansion rebuilt for every pair. This kernel restructures the work around
-the observation that **many queries probe the same partition**: pairs are
-grouped by partition (device-side sort, no host round trip), the one-hot
-expansion of a partition's codes is built once per group, and scoring
-becomes a real MXU contraction
+Many queries probe the same partition, so the (query, partition) pairs are
+grouped by partition (device-side sort, no host round trip) and each
+partition's codes are read once per group of up to ``q_cap`` queries
+instead of once per pair. Scoring a group is a matrix product
 
     [q_cap, S·C] residual LUTs  ×  [S·C, l_tile] code one-hots
 
-for every group × L-tile. Work is size-adaptive: L-tiles beyond a
-partition's size skip DMA + matmul entirely and just emit the masked
+per L-tile of the partition. Work is size-adaptive: L-tiles beyond a
+partition's size skip the loads and the products and just emit the masked
 sentinel, so skewed partitions cost what they contain, not l_cap.
 
-This is the TPU shape of the reference's per-partition scoring loop
-(reference: src/tree_x_hybrid/mod.rs:297-339) — its rayon threads become
-grid steps, its scalar LUT loop a matmul, its per-partition candidate
-vectors one CSR layout in HBM.
+This is the reference's per-partition scoring loop
+(reference: src/tree_x_hybrid/mod.rs:297-339) with its rayon threads as
+kernel programs and its scalar LUT loop as a matrix product.
 
-Layout contract (same as ops/tree_ah_pallas.py):
-  - codes_csr [S_pad, N_csr] uint8, partition-contiguous columns, every
-    partition start 128-aligned, S_pad a multiple of 32;
-  - luts [B·p, S_pad·C] with zero rows for pad subspaces.
+``grouped_scores_pallas`` is a Triton-route Pallas kernel, served on the
+GPU; the CPU and the tests score through the plain per-pair gather
+formulation (models/tree_x_hybrid.leaf_scores_xla). PERF.md "Kernel
+decisions at bring-up" has the measurement that chose the kernel over that
+formulation and over a plain grouped contraction.
+
+Layout contract:
+  - codes_t [S_rows, N_csr] uint8, partition-contiguous columns (the
+    transposed CSR slab: a subspace's codes for consecutive rows are
+    contiguous). ``packed``: S_rows = S_pad/2, byte j holds subspaces 2j
+    (low nibble) and 2j+1 (high), the reference layout (lut16.rs:43-61);
+  - luts [NG, q_cap, S_pad·C], zero columns for pad subspaces.
 """
 
 from __future__ import annotations
@@ -33,13 +37,18 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from scann_tpu.types import MASKED_DISTANCE
 
-# int16 sentinel for masked slots on the int8-LUT path: real scores are
-# bounded by s_pad * 255 (asserted < 32767 in the wrapper)
-I16_MASK = 32767
+# Candidates per program of the Triton-route kernel; partitions' leaf
+# capacity l_cap is a multiple of it. Power of two, chosen by measurement on
+# an H100 (PERF.md "Kernel decisions at bring-up").
+L_TILE = 128
+# rows of a tensor-core product: groups of fewer queries pad to this
+MIN_GROUP_ROWS = 16
+NUM_WARPS = 4
+NUM_STAGES = 3
 
 
 def group_pairs_by_partition(
@@ -56,8 +65,8 @@ def group_pairs_by_partition(
         grp_part: [NG] int32 partition id per group, **-1 for unused
             groups** — callers must zero those groups' sizes so the kernel
             skips their DMA and compute entirely (an early version scored
-            partition 0's codes for every unused group: ~44% wasted grid
-            steps at B=1024, p=10, 3.8k partitions).
+            partition 0's codes for every unused group, a large share of
+            all programs at B=1024, p=10, 3.8k partitions).
         slot: [B*p] int32 row of each pair in the [NG*q_cap] grouped layout.
         NG: static group-count upper bound,
             min(T, B·p) + ceil(B·p / q_cap) — each distinct partition can
@@ -83,158 +92,87 @@ def group_pairs_by_partition(
     return grp_part, slot, ng
 
 
-def _kernel(off_ref, size_ref, luts_ref, codes_ref, out_ref, scratch, sems,
-            *, num_codes: int, l_tile: int, n_ltiles: int, ng: int,
-            packed: bool = False):
+def _grouped_kernel(off_ref, size_ref, lut_ref, codes_ref, out_ref, *,
+                    l_tile: int, n_rows: int, packed: bool, num_codes: int):
+    """One program: one group's LUT rows against one L-tile of its
+    partition. Offsets and sizes are loaded by the program itself; the
+    subspace loop is what Triton pipelines (``num_stages``)."""
     g = pl.program_id(0)
-    lt = pl.program_id(1)
-    flat = g * n_ltiles + lt
+    start = pl.program_id(1) * l_tile
     size = size_ref[g]
-    active = lt * l_tile < size
+    qp = out_ref.shape[0]
+    col = start + jax.lax.broadcasted_iota(jnp.int32, (qp, l_tile), 1)
 
-    # Double-buffered DMA over the sequential (group, tile) walk: each step
-    # starts the next *active* step's copy before waiting on its own.
-    def dma_for(gg, tt, slot):
-        off = pl.multiple_of(off_ref[gg], 128) + tt * l_tile
-        return pltpu.make_async_copy(
-            codes_ref.at[:, pl.ds(off, l_tile)], scratch.at[slot], sems.at[slot])
+    def compute():
+        base = off_ref[g] + start
+        iota_c = jax.lax.broadcasted_iota(jnp.int32, (num_codes, l_tile), 0)
 
-    slot = jax.lax.rem(flat, 2)
-    next_slot = jax.lax.rem(flat + 1, 2)
+        def score(acc, s, codes):
+            # the [S·C, l_tile] one-hot does not fit one program's
+            # registers: contract one subspace's [C, l_tile] slice at a time
+            onehot = (codes[None, :] == iota_c).astype(jnp.bfloat16)
+            lut = lut_ref[:, pl.ds(s * num_codes, num_codes)]
+            return acc + pl.dot(lut, onehot)
 
-    @pl.when((flat == 0) & active)
-    def _():
-        dma_for(g, lt, slot).start()
+        def body(j, acc):
+            row = codes_ref[j, pl.ds(base, l_tile)].astype(jnp.int32)
+            if packed:
+                acc = score(acc, 2 * j, row & 0xF)
+                return score(acc, 2 * j + 1, row >> 4)
+            return score(acc, j, row)
 
-    nxt = flat + 1
-    ng_next = nxt // n_ltiles
-    lt_next = jax.lax.rem(nxt, n_ltiles)
-    next_active = (nxt < ng * n_ltiles) & (
-        lt_next * l_tile < size_ref[jnp.minimum(ng_next, ng - 1)])
+        acc = jax.lax.fori_loop(0, n_rows, body,
+                                jnp.zeros((qp, l_tile), jnp.float32))
+        return jnp.where(col < size, acc, MASKED_DISTANCE)
 
-    @pl.when(next_active)
-    def _():
-        dma_for(ng_next, lt_next, next_slot).start()
-
-    int8_path = luts_ref.dtype == jnp.int8
-    masked = I16_MASK if int8_path else MASKED_DISTANCE
-
-    @pl.when(active)
-    def _():
-        dma_for(g, lt, slot).wait()
-        codes = scratch[slot].astype(jnp.int32)                 # [S_pad, Lt]
-        if packed:
-            # packed low-nibble-first along S (reference layout,
-            # lut16.rs:43-61): byte j holds subspaces 2j (low) and 2j+1
-            # (high); concat gives the even-first subspace order the
-            # caller's LUT columns are permuted to match (same unpack as
-            # ops/pallas_kernels._lut16_fused_kernel) — the code stream
-            # and slab HBM halve
-            codes = jnp.concatenate([codes & 0xF, codes >> 4], axis=0)
-        s_pad = codes.shape[0]
-        iota_c = jax.lax.broadcasted_iota(
-            jnp.int32, (s_pad, num_codes, l_tile), 1)
-        if int8_path:
-            # int8 MXU contraction: LUT bytes are quantized (lut-lo)/scale
-            # - 128; the i32 result maps back to real units by one affine
-            # (see tree_x_hybrid._finalize caller) — rank-exact either way
-            onehot = (codes[:, None, :] == iota_c).astype(jnp.int8)
-            onehot = onehot.reshape(s_pad * num_codes, l_tile)
-            scores = jnp.dot(luts_ref[0], onehot,
-                             preferred_element_type=jnp.int32)
-        else:
-            onehot = (codes[:, None, :] == iota_c).astype(jnp.bfloat16)
-            onehot = onehot.reshape(s_pad * num_codes, l_tile)
-            scores = jnp.dot(luts_ref[0], onehot,
-                             preferred_element_type=jnp.float32)
-        col = lt * l_tile + jax.lax.broadcasted_iota(
-            jnp.int32, scores.shape, 1)
-        # narrow output (i16 / bf16): these are PQ-approximate pre-rank
-        # scores and the [NG*q_cap, l_cap] buffer dominates HBM writes
-        out_ref[0] = jnp.where(col < size, scores,
-                               masked).astype(out_ref.dtype)
-
-    @pl.when(~active)
-    def _():
-        out_ref[0] = jnp.full(out_ref.shape[1:], masked, out_ref.dtype)
+    res = jax.lax.cond(
+        start < size, compute,
+        lambda: jnp.full((qp, l_tile), MASKED_DISTANCE, jnp.float32))
+    out_ref[...] = res.astype(out_ref.dtype)
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("l_cap", "l_tile", "q_cap", "interpret",
-                                    "packed"))
-def tree_ah_grouped_scores_pallas(
-    luts_grouped: jnp.ndarray,   # [NG*q_cap, S_pad*C] bf16/f32 grouped LUTs
-    codes_csr: jnp.ndarray,      # [S_pad, N_csr] uint8 CSR layout
-    grp_offsets: jnp.ndarray,    # [NG] int32 CSR column start per group
-    grp_sizes: jnp.ndarray,      # [NG] int32 partition size per group
-    *, l_cap: int, l_tile: int = 256, q_cap: int = 32,
-    interpret: bool = False, packed: bool = False,
-) -> jnp.ndarray:
-    """[NG*q_cap, l_cap] scores (masked beyond each size).
+                   static_argnames=("l_cap", "packed", "interpret"))
+def grouped_scores_pallas(luts3, codes_t, grp_offsets, grp_sizes, *,
+                          l_cap: int, packed: bool = False,
+                          interpret: bool = False):
+    """Triton-route grouped scores: [NG, q_cap, l_cap] bf16, masked
+    (MASKED_DISTANCE) beyond each group's size.
 
-    int8 LUT input -> int16 scores (I16_MASK sentinel for masked slots,
-    real scores bounded by s_pad*255); float input -> bf16 scores with
-    MASKED_DISTANCE. Rows of unused group slots contain garbage — callers
-    gather rows back through the pair->slot map, which only references
-    real pairs.
-
-    ``packed=True``: ``codes_csr`` is [S_pad/2, N_csr] uint8, two 4-bit
-    codes per byte low-nibble-first along S (reference layout,
-    lut16.rs:43-61, served packed as in lut16_simd.rs:172-299); the LUT
-    columns must be permuted to even-first subspace order. Halves the
-    per-tile code DMA stream and the slab HBM.
-    """
-    ngq, sc = luts_grouped.shape
-    s_half = codes_csr.shape[0]
-    s_pad = 2 * s_half if packed else s_half
-    c = sc // s_pad
-    assert s_pad * c == sc, (s_pad, sc)
-    if packed:
-        assert c <= 16, f"packed int4 codes require num_codes <= 16, got {c}"
-    ng = ngq // q_cap
-    assert ng * q_cap == ngq
-    assert l_cap % l_tile == 0, (l_cap, l_tile)
-    n_ltiles = l_cap // l_tile
-
-    int8_path = luts_grouped.dtype == jnp.int8
-    if int8_path:
-        assert s_pad * 255 < I16_MASK, s_pad
-        luts3 = luts_grouped.reshape(ng, q_cap, sc)
-        out_dtype = jnp.int16
-        lut_bytes = 1
-    else:
-        luts3 = luts_grouped.reshape(ng, q_cap, sc).astype(jnp.bfloat16)
-        out_dtype = jnp.bfloat16
-        lut_bytes = 2
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(ng, n_ltiles),
-        in_specs=[
-            pl.BlockSpec((1, q_cap, sc), lambda g, lt, off, sz: (g, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec((1, q_cap, l_tile),
-                               lambda g, lt, off, sz: (g, 0, lt),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((2, s_half, l_tile), jnp.uint8),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
+    luts3 [NG, q_cap, S_pad·C] bf16 grouped LUTs (C a power of two >= 16,
+    the tensor cores' minimum depth); codes_t the transposed
+    CSR slab (see the module docstring); grp_offsets/grp_sizes [NG] int32
+    CSR start and size of each group's partition (size 0 = unused group,
+    which costs one masked store per tile). The slab must hold l_cap
+    columns past the last partition start. bf16 output: these are
+    PQ-approximate pre-rank scores, re-ranked exactly downstream."""
+    ng, q, sc = luts3.shape
+    n_rows = codes_t.shape[0]
+    num_codes = sc // (2 * n_rows if packed else n_rows)
+    if (sc % n_rows or num_codes < 16 or num_codes & (num_codes - 1)
+            or (packed and num_codes != 16)):
+        raise ValueError(f"LUT width {sc} over {n_rows} code rows "
+                         f"(packed={packed}) is not a power-of-two code "
+                         f"count >= 16 (16 when packed)")
+    if l_cap % L_TILE:
+        raise ValueError(f"l_cap {l_cap} must be a multiple of {L_TILE}")
+    qp = max(MIN_GROUP_ROWS, 1 << (q - 1).bit_length())
+    if qp != q:
+        luts3 = jnp.pad(luts3, ((0, 0), (0, qp - q), (0, 0)))
     out = pl.pallas_call(
-        functools.partial(_kernel, num_codes=c, l_tile=l_tile,
-                          n_ltiles=n_ltiles, ng=ng, packed=packed),
-        out_shape=jax.ShapeDtypeStruct((ng, q_cap, l_cap), out_dtype),
-        grid_spec=grid_spec,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * ng * q_cap * sc * l_cap,
-            bytes_accessed=ng * (s_half * l_cap + q_cap * sc * lut_bytes
-                                 + q_cap * l_cap * 2),
-            transcendentals=0,
-        ),
+        functools.partial(_grouped_kernel, l_tile=L_TILE, n_rows=n_rows,
+                          packed=packed, num_codes=num_codes),
+        out_shape=jax.ShapeDtypeStruct((ng, qp, l_cap), jnp.bfloat16),
+        grid=(ng, l_cap // L_TILE),
+        in_specs=[pl.no_block_spec, pl.no_block_spec,
+                  pl.BlockSpec((None, qp, sc), lambda g, t: (g, 0, 0)),
+                  pl.no_block_spec],
+        out_specs=pl.BlockSpec((None, qp, L_TILE), lambda g, t: (g, 0, t)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
         interpret=interpret,
+        name="tree_ah_grouped",
     )(grp_offsets.astype(jnp.int32), grp_sizes.astype(jnp.int32),
-      luts3, codes_csr)
-    return out.reshape(ngq, l_cap)
+      luts3.astype(jnp.bfloat16), codes_t)
+    return out[:, :q]

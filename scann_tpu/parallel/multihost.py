@@ -1,7 +1,7 @@
 """Multi-host (DCN) scale-out entry points.
 
-The reference is strictly single-process (SURVEY §2.6). Beyond one TPU pod
-slice, JAX spans hosts with ``jax.distributed``: every host runs the same
+The reference is strictly single-process (SURVEY §2.6). Beyond one host's
+devices, JAX spans hosts with ``jax.distributed``: every host runs the same
 program, sees the global device list, and the same ``shard_map`` programs
 from scann_tpu.parallel.sharded work unchanged — database shards that land
 on another host's chips communicate over DCN only at the tiny top-k merge.
@@ -26,7 +26,8 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     """Initialize jax.distributed for a multi-host mesh.
 
     Args mirror ``jax.distributed.initialize``; with no args, env-based
-    auto-detection (GKE/TPU-VM metadata) is used. Returns the process index.
+    JAX's cluster auto-detection is used (where the environment provides
+    one; otherwise pass all three). Returns the process index.
     """
     try:
         jax.distributed.initialize(

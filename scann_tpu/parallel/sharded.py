@@ -1,7 +1,7 @@
 """Sharded search and training programs (shard_map over a device mesh).
 
 Collective pattern for search: each shard scores its database block and
-produces a local top-k; the [k]-sized partials all_gather over ICI (tiny
+produces a local top-k; the [k]-sized partials all_gather across devices (tiny
 traffic: k entries per shard per query) and a final top-k merges them.
 Database rows never move — only candidate lists ride the interconnect.
 
@@ -100,11 +100,9 @@ def sharded_kmeans_step(mesh: Mesh, k: int, db_axis: str = "db"):
     def _step(data_blk, centers, n_valid):
         from scann_tpu.trees.kmeans import assign_clusters
 
-        # cluster sums via chunked one-hot matmuls, NOT segment_sum: XLA's
-        # TPU scatter-add lowering for a [1M, D] operand takes ~8 minutes to
-        # COMPILE (see trees/kmeans.py _lloyd_step); the one-hot contraction
-        # compiles in seconds, runs at MXU speed, and chunking keeps the
-        # [chunk, K] one-hot on-chip-sized for million-row shards
+        # cluster sums via chunked one-hot matmuls, NOT segment_sum (see
+        # trees/kmeans.py _lloyd_sums); chunking keeps the [chunk, K]
+        # one-hot small for million-row shards
         assign, min_d = assign_clusters(data_blk, centers)
         nb, d = data_blk.shape
         row0 = jax.lax.axis_index(db_axis) * nb
@@ -147,7 +145,8 @@ class ShardedBruteForceSearcher(Searcher):
     """Exact search with the database sharded over a chip mesh.
 
     The BASELINE north-star scale-out: [N, D] rows live shard-wise in each
-    chip's HBM; queries broadcast; per-shard top-k merges over ICI.
+    device's memory; queries broadcast; per-shard top-k partials merge
+    across devices.
     """
 
     def __init__(self, dataset: DenseDataset,

@@ -2,17 +2,16 @@
 
 Scale-out pattern (SURVEY §2.6): database rows never move — each shard
 scores its own block, re-ranks its own candidates against its own raw rows
-(everything local), and only [k]-sized exact partials ride the ICI
+(everything local), and only [k]-sized exact partials cross devices
 (`all_gather` + merge). Recall is >= the single-device searcher at equal
 knobs: every shard keeps a full local pre_k, so the global top-pre_k is a
 subset of the union of local candidate sets.
 
-The shard-local bodies reuse the SAME kernels as the single-device
-searchers: the fused packed-int4 LUT16 sweep (ops/pallas_kernels.py) and
-the grouped-MXU tree-AH leaf scorer (ops/tree_ah_grouped.py via
-models/tree_x_hybrid.leaf_scores_grouped) on TPU, with the XLA one-hot
-formulations as the CPU / restricted-query fallback. Shard-local grouping
-needs no cross-chip communication, so scale-out is pure composition.
+The shard-local bodies reuse the SAME stages as the single-device
+searchers — the block-min sweep (ops/sweep_pallas.sweep_block_candidates)
+and the tree-AH leaf scorer chosen by the platform
+(models/tree_x_hybrid.tree_ah_search's ``scorer``). Shard-local scoring
+needs no cross-device communication, so scale-out is pure composition.
 
 Feature parity with the single-device paths: the searcher's configured
 ``distance_measure`` is threaded into every stage (cosine queries are
@@ -29,7 +28,7 @@ locally), and unowned partitions enter the shared search body with size 0.
 Centroids/codebooks replicate (KBs–MBs).
 
 The reference is single-process (Cargo.toml has no distribution deps) — this
-module is the TPU-native scale-out the reference never had.
+module is a scale-out the reference never had.
 """
 
 from __future__ import annotations
@@ -66,15 +65,9 @@ from scann_tpu.parallel.mesh import make_mesh, replicate, shard_rows
 from scann_tpu.types import MASKED_DISTANCE, align_up
 
 
-def _on_tpu() -> bool:
-    from scann_tpu.types import is_tpu
-
-    return is_tpu()
-
-
 def _merge_partials(vals, idx, k: int, multiplicity: int, post_eps,
                     db_axis: str):
-    """all_gather the [B, k_local] exact partials over ICI and merge to the
+    """all_gather the [B, k_local] exact partials across devices and merge to the
     global top-k, applying the post-reordering threshold."""
     all_vals = jax.lax.all_gather(vals, db_axis, axis=1, tiled=True)
     all_idx = jax.lax.all_gather(idx, db_axis, axis=1, tiled=True)
@@ -93,31 +86,20 @@ def _merge_partials(vals, idx, k: int, multiplicity: int, post_eps,
 
 
 def sharded_ah_sweep_kernel(mesh: Mesh, *, pre_k: int, k: int,
-                            measure: DistanceMeasure, kernel: str = "xla",
-                            with_mask: bool = False, r: int = 32,
-                            tile_n: int = 1024, db_axis: str = "db",
+                            measure: DistanceMeasure,
+                            with_mask: bool = False, db_axis: str = "db",
                             dequant=None):
     """fn(centroids, codes, db [N,D] row-sharded, norms [N] sharded, n_valid,
     queries replicated[, allow_mask sharded], pre_eps, post_eps)
-    -> (dists, idx).
-
-    kernel="xla": codes [N, S] u8 row-sharded, one-hot lut_score per shard —
-        the fallback, and the only path that supports ``with_mask`` (the
-        fused sweep's in-kernel r:1 block-min cannot mask per point).
-    kernel="fused": codes [S_pad/2, N] packed nibbles, lane-sharded; the
-        same fused Pallas sweep as the single-device hasher
-        (ah_search_fused_kernel) runs on each shard's block.
+    -> (dists, idx). Codes [N, S] u8 row-sharded, one-hot lut_score per
+    shard.
 
     Per shard: sweep over the local code block -> local approx top-pre_k
-    -> local exact re-rank -> local top-k; ICI all_gather + merge.
+    -> local exact re-rank -> local top-k; all_gather + merge.
     """
-    if kernel == "fused" and with_mask:
-        raise ScannError.invalid_argument(
-            "fused sweep cannot apply allow masks; use kernel='xla'")
     from scann_tpu.hashes.hasher import _ah_luts
 
-    codes_spec = P(None, db_axis) if kernel == "fused" else P(db_axis, None)
-    in_specs = [P(), codes_spec, P(db_axis, None), P(db_axis), P(),
+    in_specs = [P(), P(db_axis, None), P(db_axis, None), P(db_axis), P(),
                 P(None, None)]
     if with_mask:
         in_specs.append(P(db_axis))
@@ -142,41 +124,17 @@ def sharded_ah_sweep_kernel(mesh: Mesh, *, pre_k: int, k: int,
 
         luts = _ah_luts(queries, centroids, measure)          # [B, S, C]
 
-        if kernel == "fused":
-            from scann_tpu.hashes.lut import (
-                luts_i8_evenfirst,
-                quantize_luts_u8_device,
-            )
-            from scann_tpu.ops.pallas_kernels import (
-                INVALID_COMBINED,
-                lut16_fused_sweep_pallas,
-            )
-
-            s_real = centroids.shape[0]
-            q_u8, mult, bias = quantize_luts_u8_device(luts)
-            luts_i8 = luts_i8_evenfirst(q_u8)
-            comb = lut16_fused_sweep_pallas(
-                luts_i8, codes_blk, nv_loc, tile_n=tile_n, r=r,
-                interpret=not _on_tpu())
-            pk = min(pre_k, blk // r)
-            vals, blkidx = approx_top_k_smallest(comb.T, pk)
-            iv = vals.astype(jnp.int32)
-            approx = (iv // r).astype(jnp.float32) * mult[:, None] \
-                + bias[:, None] * s_real
-            cand = blkidx * r + (iv % r)                      # local rows
-            pre_valid = vals < INVALID_COMBINED / 2
-        else:
-            approx = lut_score(luts, codes_blk)               # [B, blk]
-            col = jax.lax.broadcasted_iota(jnp.int32, approx.shape, 1)
-            ok = col < nv_loc
-            if mask_blk is not None:
-                ok = ok & mask_blk[None, :]
-            approx = jnp.where(ok, approx,
-                               jnp.asarray(MASKED_DISTANCE, approx.dtype))
-            pk = min(pre_k, blk)
-            avals, cand = approx_top_k_smallest(approx, pk)
-            approx = avals.astype(jnp.float32)
-            pre_valid = approx < MASKED_DISTANCE / 2
+        approx = lut_score(luts, codes_blk)                   # [B, blk]
+        col = jax.lax.broadcasted_iota(jnp.int32, approx.shape, 1)
+        ok = col < nv_loc
+        if mask_blk is not None:
+            ok = ok & mask_blk[None, :]
+        approx = jnp.where(ok, approx,
+                           jnp.asarray(MASKED_DISTANCE, approx.dtype))
+        pk = min(pre_k, blk)
+        avals, cand = approx_top_k_smallest(approx, pk)
+        approx = avals.astype(jnp.float32)
+        pre_valid = approx < MASKED_DISTANCE / 2
 
         # epsilon compares in the measure's own units (COSINE approx scores
         # are 2x the cosine distance — advisor r2 finding)
@@ -190,8 +148,8 @@ def sharded_ah_sweep_kernel(mesh: Mesh, *, pre_k: int, k: int,
             rows = rows.astype(jnp.float32) * dequant[0] + dequant[1]
         elif rows.dtype != jnp.float32:
             rows = rows.astype(jnp.float32)  # bf16 rerank copy
-        # norms recomputed from the gathered f32 rows (per-element
-        # norm gathers cost ~20 ns each on TPU; identical math)
+        # norms recomputed from the gathered f32 rows (identical math, no
+        # per-element norm gather)
         nrm = jnp.sum(rows * rows, axis=-1)
         exact = gathered_distances(measure, queries, rows, nrm)
         exact = jnp.where(pre_valid, exact, MASKED_DISTANCE)
@@ -209,30 +167,18 @@ def sharded_ah_sweep_kernel(mesh: Mesh, *, pre_k: int, k: int,
 class ShardedAsymmetricHasher(Searcher):
     """LUT16/PQ sweep with codes + raw rows sharded over the mesh."""
 
-    FUSED_TILE_N = 1024
-    FUSED_R = 32
-
-    def __init__(self, hasher, mesh: Optional[Mesh] = None,
-                 force_kernel: Optional[str] = None,
-                 fused_r: Optional[int] = None):
+    def __init__(self, hasher, mesh: Optional[Mesh] = None):
         """Wrap a built single-device AsymmetricHasher (train once on host,
-        serve sharded). ``force_kernel`` ("xla" | "fused") overrides the
-        platform-based kernel choice (tests exercise the fused path in
-        interpret mode on the CPU mesh); ``fused_r`` overrides the block-min
-        reduction factor (smaller r = more candidates per shard at more
-        score-write traffic — useful when per-shard blocks are small)."""
+        serve sharded)."""
         if hasher.codebook is None or hasher._dataset is None:
             raise ScannError.failed_precondition(
                 "hasher must be built with store_dataset=True")
-        if fused_r is not None:
-            self.FUSED_R = int(fused_r)
         self._inner = hasher
         self._measure = hasher.config.distance_measure
         self.mesh = mesh or make_mesh(axis_names=("db",))
         n_sh = self.mesh.shape["db"]
         n = hasher.dataset_size()
-        # per-shard blocks tile-aligned so the fused sweep grids evenly
-        blk = int(align_up(-(-n // n_sh), self.FUSED_TILE_N))
+        blk = int(align_up(-(-n // n_sh), 8))
         n_pad = n_sh * blk
         self._blk = blk
 
@@ -240,15 +186,9 @@ class ShardedAsymmetricHasher(Searcher):
         # the shards inherit the normalized rows
         data = hasher._dataset.numpy()
         sh = lambda a, spec: jax.device_put(a, NamedSharding(self.mesh, spec))
-        # row-major u8 codes serve only the XLA fallback (masked queries /
-        # pre_k too large for the fused block-min); when the fused kernel
-        # is eligible they stay on host until a fallback query needs them
-        # (~2x the packed slab's HBM otherwise — same skip as the
-        # single-device _csr_state)
         codes = np.zeros((n_pad, hasher.codes.shape[1]), np.uint8)
         codes[:n] = hasher.codes
-        self._codes_host = codes
-        self._codes = None
+        self._codes = sh(jnp.asarray(codes), P("db", None))
         # rerank copy in the wrapped hasher's configured dtype — the raw-row
         # slab is the dominant per-shard allocation (same lever as
         # rerank_dtype everywhere else; codec shared via rerank_codec)
@@ -269,19 +209,6 @@ class ShardedAsymmetricHasher(Searcher):
         self._cent = replicate(self.mesh, hasher.codebook.centroids_device())
         self._n = n
         self._kernels = {}
-        if force_kernel is not None:
-            self._fused_ok = force_kernel == "fused"
-        else:
-            self._fused_ok = (hasher.codebook.num_codes <= 16 and _on_tpu())
-        self._codes_packed = None
-        if self._fused_ok:
-            from scann_tpu.hashes.lut16 import pack_codes_4bit
-
-            packed = pack_codes_4bit(hasher.codes)      # [N, S_pad/2]
-            full = np.zeros((n_pad, packed.shape[1]), np.uint8)
-            full[:n] = packed
-            self._codes_packed = sh(
-                jax.jit(lambda c: c.T)(jnp.asarray(full)), P(None, "db"))
 
     def dataset_size(self) -> int:
         return self._n
@@ -291,23 +218,6 @@ class ShardedAsymmetricHasher(Searcher):
 
     def _docids(self):
         return self._inner._docids()
-
-    def _use_fused(self, pre_k: int, with_mask: bool) -> bool:
-        """Same block-count guard as the single-device hasher: one candidate
-        per r-block must not starve pre_k on any shard."""
-        return (self._fused_ok and not with_mask
-                and self._blk // self.FUSED_R >= 2 * pre_k)
-
-    def _codes_rows(self):
-        """Row-major u8 code slab, uploaded (sharded) on first XLA-path
-        query and cached; fused-path serving never pays its HBM. The host
-        copy is released after the upload — one resident copy at a time."""
-        if self._codes is None:
-            self._codes = jax.device_put(
-                jnp.asarray(self._codes_host),
-                NamedSharding(self.mesh, P("db", None)))
-            self._codes_host = None
-        return self._codes
 
     def search_batched_arrays(self, queries: np.ndarray, k: int,
                               params: Optional[SearchParameters] = None,
@@ -331,19 +241,14 @@ class ShardedAsymmetricHasher(Searcher):
                 post_eps = float(params.post_reordering_epsilon)
         pre_k = min(max(pre_k, k), self._blk)
         with_mask = allow_mask is not None
-        kernel = "fused" if self._use_fused(pre_k, with_mask) else "xla"
 
-        key = (pre_k, k, kernel, with_mask)
+        key = (pre_k, k, with_mask)
         if key not in self._kernels:
             self._kernels[key] = sharded_ah_sweep_kernel(
                 self.mesh, pre_k=pre_k, k=k, measure=self._measure,
-                kernel=kernel, with_mask=with_mask,
-                r=self.FUSED_R, tile_n=self.FUSED_TILE_N,
-                dequant=self._dequant)
+                with_mask=with_mask, dequant=self._dequant)
         q = replicate(self.mesh, jnp.asarray(queries))
-        codes = (self._codes_packed if kernel == "fused"
-                 else self._codes_rows())
-        args = [self._cent, codes, self._db, self._norms,
+        args = [self._cent, self._codes, self._db, self._norms,
                 jnp.int32(self._n), q]
         if with_mask:
             m = np.zeros(self._db.shape[0], dtype=bool)
@@ -365,27 +270,24 @@ def sharded_tree_ah_kernel(mesh: Mesh, *, p: int, pre_k: int, k: int,
                            measure: DistanceMeasure,
                            multiplicity: int = 1,
                            approx_select_min: int = 1024,
-                           use_grouped: bool = False,
-                           q_cap: int = 8, l_tile: int = 512,
+                           scorer: str = "pairs",
                            with_mask: bool = False,
                            db_axis: str = "db",
                            dequant=None,
-                           packed: bool = False,
                            spill_dedup: bool = True,
                            residual_anchor: bool = False):
     """fn(centers, codebook, codes, offsets [Sh,K], sizes [Sh,K],
     perm [Sh,L], db_csr [Sh,L,D], norms_csr [Sh,L], queries[, allow_mask
     replicated [N]], pre_eps, post_eps) -> (dists, idx).
 
-    ``codes``: [Sh, L, S_pad] row-major when use_grouped=False, or the
-    transposed [Sh, S_pad, L] slab for the grouped-MXU Pallas scorer —
-    the same kernel the single-device TPU path serves with
-    (models/tree_x_hybrid.leaf_scores_grouped; shard-local, no collectives).
+    ``codes``: each shard's slab in the serving layout of ``scorer``
+    (models/tree_x_hybrid.code_slab) — the same leaf scorer the
+    single-device searcher serves with (shard-local, no collectives).
 
     Every shard runs the same partition selection (replicated centroids) and
     scores only the partitions it owns (others have size 0); exact re-rank
     gathers the shard's own raw rows (stored in local CSR order), and the
-    [k]-sized exact partials merge over ICI.
+    [k]-sized exact partials merge across devices.
     """
     from scann_tpu.models.tree_x_hybrid import (
         _residual_luts,
@@ -417,7 +319,7 @@ def sharded_tree_ah_kernel(mesh: Mesh, *, p: int, pre_k: int, k: int,
         tok_csr = rest.pop(0)[0] if residual_anchor else None
         allow_mask = rest.pop(0) if with_mask else None
         pre_eps, post_eps = rest
-        codes = codes[0]              # [L_sh, S_pad] or [S_pad, L_sh]
+        codes = codes[0]              # one shard's code_slab
         offsets = offsets[0]          # [K] local CSR starts
         sizes = sizes[0]              # [K] zero for unowned partitions
         perm = perm[0]                # [L_sh] local row -> global point id
@@ -427,19 +329,16 @@ def sharded_tree_ah_kernel(mesh: Mesh, *, p: int, pre_k: int, k: int,
         parts = _select_partitions(centers, queries, p=p,
                                    approx_min=approx_select_min,
                                    measure=measure)
-        if use_grouped:
-            s_pad = (2 * codes.shape[0]) if packed else codes.shape[0]
-        else:
-            s_pad = codes.shape[1]
+        s_pad = align_up(codebook.shape[0], 2)
+        num_rows = codes.shape[1] if scorer == "grouped" else codes.shape[0]
         luts_flat = _residual_luts(queries, centers, parts, codebook,
                                    s_pad=s_pad, use_residuals=use_residuals,
                                    measure=measure)
 
-        if use_grouped:
+        if scorer == "grouped":
             flat_scores, rows_il = leaf_scores_grouped(
                 luts_flat, parts, codes, offsets, sizes,
-                p=p, l_cap=l_cap, q_cap=q_cap, l_tile=l_tile,
-                interpret=not _on_tpu(), packed=packed)
+                p=p, l_cap=l_cap, c=codebook.shape[1])
         else:
             flat_scores, rows_il = leaf_scores_xla(
                 luts_flat, parts, codes, offsets, sizes,
@@ -460,11 +359,9 @@ def sharded_tree_ah_kernel(mesh: Mesh, *, p: int, pre_k: int, k: int,
             else min(pre_k, p * l_cap)
         pre_vals, pre_pos = approx_top_k_smallest(flat_scores, sel_k)
         # arithmetic row resolution (not take_along_axis over the
-        # materialized [B, p*l_cap] tensor — measured ~20 ms/batch at
-        # SOAR width, BENCH_NOTES round-5 stage decomposition)
+        # materialized [B, p*l_cap] tensor)
         pre_rows = candidate_rows_from_positions(
-            parts, offsets, codes.shape[1] if use_grouped else
-            codes.shape[0], pre_pos, p=p)
+            parts, offsets, num_rows, pre_pos, p=p)
         pre_vals = pre_vals.astype(jnp.float32)
         pre_m = approx_to_measure_units(pre_vals, measure)
         pre_valid = (pre_vals < MASKED_DISTANCE / 2) & (pre_m <= pre_eps)
@@ -473,7 +370,7 @@ def sharded_tree_ah_kernel(mesh: Mesh, *, p: int, pre_k: int, k: int,
             # collapse a spilled point's shard-local copies BEFORE the
             # rerank gather (same lever as the single-device _finalize:
             # the gather is the latency floor, run it at unique depth).
-            # Cross-SHARD copies still exist — the ICI merge dedups those.
+            # Cross-SHARD copies still exist — the merge dedups those.
             ids = jnp.take(perm, pre_rows, axis=0)
             masked = jnp.where(pre_valid, pre_vals, MASKED_DISTANCE)
             pk = min(pre_k, sel_k)
@@ -505,7 +402,7 @@ def sharded_tree_ah_kernel(mesh: Mesh, *, p: int, pre_k: int, k: int,
             # local candidates are already unique: k local slots suffice
             # (a global top-k point is local top-k on every shard holding
             # a copy — identical exact distance); cross-shard duplicates
-            # are removed by the multiplicity-aware ICI merge below
+            # are removed by the multiplicity-aware merge below
             k_local = min(k, pk)
             vals, pos = top_k_smallest(exact, k_local)
             idx = jnp.take_along_axis(ids_u, pos, axis=1)
@@ -527,6 +424,23 @@ def sharded_tree_ah_kernel(mesh: Mesh, *, p: int, pre_k: int, k: int,
     return jax.jit(_kern)
 
 
+def _map_row_chunks(fn, k: int, *rows):
+    """``fn`` over row chunks of a shard's [n, ...] arrays (lax.map), so the
+    [chunk, K] distance intermediates stay bounded
+    (trees/kmeans.adaptive_row_chunk) instead of one [n, K] matrix per
+    shard. Outputs are concatenated back to n rows."""
+    from scann_tpu.trees.kmeans import adaptive_row_chunk
+
+    n = rows[0].shape[0]
+    chunk = adaptive_row_chunk(131072, n, k)
+    n_pad = -(-n // chunk) * chunk
+    split = [jnp.pad(a, [(0, n_pad - n)] + [(0, 0)] * (a.ndim - 1)).reshape(
+        (n_pad // chunk, chunk) + a.shape[1:]) for a in rows]
+    out = jax.lax.map(lambda xs: fn(*xs), tuple(split))
+    return jax.tree_util.tree_map(
+        lambda o: o.reshape((n_pad,) + o.shape[2:])[:n], out)
+
+
 def sharded_topr_kernel(mesh: Mesh, *, r: int, measure: DistanceMeasure,
                         db_axis: str = "db"):
     """fn(data [N,D] row-sharded, centers [K,D] replicated) ->
@@ -543,8 +457,10 @@ def sharded_topr_kernel(mesh: Mesh, *, r: int, measure: DistanceMeasure,
         check_vma=False,
     )
     def _topr(data_blk, centers):
-        return select_partitions_kernel(centers, data_blk,
-                                        measure=measure, p=r)
+        return _map_row_chunks(
+            lambda x: select_partitions_kernel(centers, x, measure=measure,
+                                               p=r),
+            centers.shape[0], data_blk)
 
     return jax.jit(_topr)
 
@@ -606,8 +522,10 @@ def sharded_soar_select_kernel(mesh: Mesh, *, r: int, lam: float,
         check_vma=False,
     )
     def _soar(data_blk, centers, prim_blk):
-        return soar_select_kernel(centers, data_blk, prim_blk,
-                                  jnp.float32(lam), r=r)
+        return _map_row_chunks(
+            lambda x, prim: soar_select_kernel(centers, x, prim,
+                                               jnp.float32(lam), r=r),
+            centers.shape[0], data_blk, prim_blk)
 
     return jax.jit(_soar)
 
@@ -639,10 +557,9 @@ def sharded_avq_encode_kernel(mesh: Mesh, *, eta: float,
 
 
 def sharded_tree_ah_build(dataset, config, mesh: Optional[Mesh] = None,
-                          force_kernel: Optional[str] = None,
                           verbose: bool = False):
     """Build tree-×-AH end-to-end with the database only ever ROW-SHARDED
-    (VERDICT r3 next #2): no single device ever holds the full dataset, so
+   : no single device ever holds the full dataset, so
     the N-chip capacity the sharded wrapper serves is also buildable.
 
     Stages (SURVEY §7 step 8; single-device analog:
@@ -652,13 +569,12 @@ def sharded_tree_ah_build(dataset, config, mesh: Optional[Mesh] = None,
          — the sample is small by construction;
       2. Lloyd refinement over the FULL row-sharded data via
          parallel/sharded.sharded_kmeans_step (per-shard one-hot
-         segment-sums, psum over ICI), empty clusters reseeded from
+         segment-sums, psum across devices), empty clusters reseeded from
          random rows (reference: kmeans.rs:405-410);
       3. per-shard token assignment (sharded_assign_kernel), then the LBG
          balance rounds (shared lbg_grow_centers splitting + sharded
          Lloyd refinement + per-shard re-assign + the shared hard-demote)
-         — the discipline that drives build quality (BENCH_NOTES round 4:
-         skipping it measured 2.2x the inertia / −10pp recall);
+         — the discipline that drives build quality;
       4. PQ codebook trained on a host residual sample;
       5. per-shard residual encode into uint8 codes
          (sharded_residual_encode_kernel) — only the [N, S] code bytes
@@ -905,8 +821,7 @@ def sharded_tree_ah_build(dataset, config, mesh: Optional[Mesh] = None,
                                secondary_codes[pts])
     else:
         inner.codes = primary_codes[tk.point_indices]
-    return ShardedTreeXHybridSearcher(inner, mesh,
-                                      force_kernel=force_kernel)
+    return ShardedTreeXHybridSearcher(inner, mesh)
 
 
 def _bin_pack_partitions(sizes: np.ndarray, n_shards: int) -> np.ndarray:
@@ -925,8 +840,8 @@ def _compute_tree_shard_layout(searcher, n_sh: int) -> dict:
     """Per-shard host CSR layout for ShardedTreeXHybridSearcher: partitions
     bin-packed by size, each shard's codes + rerank rows in local CSR
     order. The canonical code slab is UNPACKED row-major [Sh, L_sh, S] —
-    platform-specific packing/transposition happens at device upload, so a
-    saved layout serves both kernels. This per-partition Python loop (plus
+    the leaf scorer's packing/transposition happens at device upload, so a
+    saved layout serves every platform. This per-partition Python loop (plus
     the rerank encode) is the serving-restart cost warm start skips."""
     from scann_tpu.utils.reordering import rerank_codec
 
@@ -936,8 +851,9 @@ def _compute_tree_shard_layout(searcher, n_sh: int) -> dict:
     sizes = tk.partition_sizes
     owner = _bin_pack_partitions(sizes, n_sh)
 
-    l_tile = max(int(searcher.config.score_l_tile), 128)
-    l_cap = int(align_up(max(tk.max_partition_size, 8), l_tile))
+    from scann_tpu.models.tree_x_hybrid import leaf_cap
+
+    l_cap = leaf_cap(tk.max_partition_size)
     s = searcher.codes.shape[1]
     d = data.shape[1]
 
@@ -957,7 +873,7 @@ def _compute_tree_shard_layout(searcher, n_sh: int) -> dict:
     # rerank copy in the wrapped searcher's configured dtype: the
     # [Sh, L_sh, D] raw-row slab is the dominant per-shard allocation
     # (same lever as single-device rerank_dtype; codec shared via
-    # rerank_codec; docs/DESIGN.md "HBM budget at scale"). int8 uses the
+    # rerank_codec; docs/DESIGN.md "Device memory at scale"). int8 uses the
     # RESIDUAL-ANCHORED per-dim codec: each CSR row quantizes the
     # residual against ITS OWN partition's centroid (even finer than the
     # single-device primary-token anchor for spilled copies), with a
@@ -1029,33 +945,20 @@ class ShardedTreeXHybridSearcher(Searcher):
     """Tree-×-AH served with partitions bin-packed across the mesh."""
 
     def __init__(self, searcher, mesh: Optional[Mesh] = None,
-                 force_kernel: Optional[str] = None,
                  layout: Optional[dict] = None):
-        """Wrap a built single-device TreeXHybridSearcher. ``force_kernel``
-        ("xla" | "grouped") overrides the platform-based choice (tests run
-        the grouped-MXU path in interpret mode on the CPU mesh).
+        """Wrap a built single-device TreeXHybridSearcher; shards serve
+        with its leaf scorer (``searcher._leaf_scorer()``).
 
         ``layout``: precomputed per-shard host layout (save_layout /
         load_layout warm start) — skips the per-partition re-shard +
         rerank re-encode loop, the dominant serving-restart cost at scale
-        (VERDICT r3 weak #5)."""
+       ."""
         if searcher.codebook is None:
             raise ScannError.failed_precondition("searcher not built")
         self._inner = searcher
         self.mesh = mesh or make_mesh(axis_names=("db",))
         n_sh = self.mesh.shape["db"]
-        if force_kernel is not None:
-            self._use_grouped = force_kernel == "grouped"
-        else:
-            self._use_grouped = _on_tpu()
-
-        # packed int4 slab (same condition + layout as the single-device
-        # _csr_state: grouped kernel + 4-bit codes, config override)
-        s = searcher.codes.shape[1]
-        pc = getattr(searcher.config, "pack_codes", None)
-        self._packed = (self._use_grouped
-                        and searcher.config.hash_config.num_codes <= 16
-                        and (pc is None or bool(pc)))
+        self._scorer = searcher._leaf_scorer()
 
         from scann_tpu.utils.reordering import rerank_norms_fn
 
@@ -1077,30 +980,11 @@ class ShardedTreeXHybridSearcher(Searcher):
         put = lambda a, spec: jax.device_put(
             jnp.asarray(a), NamedSharding(self.mesh, spec))
 
-        def pad_cols(a, width):
-            if a.shape[2] == width:
-                return a
-            return np.concatenate(
-                [a, np.zeros(a.shape[:2] + (width - a.shape[2],),
-                             np.uint8)], axis=2)
+        from scann_tpu.models.tree_x_hybrid import code_slab
 
-        if self._use_grouped and self._packed:
-            # low-nibble-first pairs (reference lut16.rs:43-61): the
-            # per-shard slab halves, so N-shard capacity doubles too. The
-            # canonical layout stores unpacked S columns; pad to
-            # 2*align_up(ceil(S/2),8) (Mosaic DMA sublane alignment) then
-            # pack — one vectorized op, not the per-partition loop the
-            # warm start skips
-            codes_sh = pad_cols(codes_sh, 2 * int(align_up((s + 1) // 2, 8)))
-            codes_sh = (codes_sh[:, :, 0::2] | (codes_sh[:, :, 1::2] << 4))
-        else:
-            codes_sh = pad_cols(codes_sh, int(align_up(s, 32)))
-        if self._use_grouped:
-            # transposed [Sh, S_pad, L_sh] slab for the grouped Pallas DMA
-            self._codes = put(np.ascontiguousarray(
-                codes_sh.transpose(0, 2, 1)), P("db", None, None))
-        else:
-            self._codes = put(codes_sh, P("db", None, None))
+        num_codes = searcher.config.hash_config.num_codes
+        self._codes = put(np.stack([code_slab(c, self._scorer, num_codes)
+                                    for c in codes_sh]), P("db", None, None))
         self._perm = put(layout["perm"], P("db", None))
         self._db = put(layout["db"], P("db", None, None))
         self._tok = (put(layout["tok"], P("db", None))
@@ -1128,24 +1012,20 @@ class ShardedTreeXHybridSearcher(Searcher):
         save_sharded_layout(path, self)
 
     @classmethod
-    def load_layout(cls, path: str, mesh: Optional[Mesh] = None,
-                    force_kernel: Optional[str] = None):
+    def load_layout(cls, path: str, mesh: Optional[Mesh] = None):
         """Restore a wrapper saved with save_layout: artifacts + per-shard
         slabs load straight from disk into the sharded device layout."""
         from scann_tpu.io import load_sharded_layout
 
-        return load_sharded_layout(path, cls, mesh=mesh,
-                                   force_kernel=force_kernel)
+        return load_sharded_layout(path, cls, mesh=mesh)
 
     @classmethod
     def build(cls, dataset, config, mesh: Optional[Mesh] = None,
-              force_kernel: Optional[str] = None, verbose: bool = False):
+              verbose: bool = False):
         """Build end-to-end with the database only ever row-sharded over
         ``mesh`` (no single-device index materialization) — see
         sharded_tree_ah_build."""
-        return sharded_tree_ah_build(dataset, config, mesh,
-                                     force_kernel=force_kernel,
-                                     verbose=verbose)
+        return sharded_tree_ah_build(dataset, config, mesh, verbose=verbose)
 
     def dataset_size(self) -> int:
         return self._inner.dataset_size()
@@ -1190,21 +1070,16 @@ class ShardedTreeXHybridSearcher(Searcher):
         # spill_dedup=False pins the legacy inflated-gather path)
         pre_k = min(max(pre_k, k), p * self._l_cap)
         with_mask = allow_mask is not None
-        # per-shard pair density: each shard sees the full replicated batch
-        # against its owned partitions (~p/n_sh of the selected set)
-        q_cap = self._inner.effective_q_cap(len(queries), p)
         dedup = bool(getattr(cfg, "spill_dedup", True))
-        key = (p, pre_k, k, with_mask, q_cap, dedup)
+        key = (p, pre_k, k, with_mask, dedup)
         if key not in self._kernels:
             self._kernels[key] = sharded_tree_ah_kernel(
                 self.mesh, p=p, pre_k=pre_k, k=k, l_cap=self._l_cap,
                 use_residuals=cfg.use_residuals, measure=cfg.distance_measure,
                 multiplicity=mult,
                 approx_select_min=cfg.approx_selection_min_partitions,
-                use_grouped=self._use_grouped, q_cap=q_cap,
-                l_tile=cfg.score_l_tile, with_mask=with_mask,
-                dequant=self._dequant, packed=self._packed,
-                spill_dedup=dedup,
+                scorer=self._scorer, with_mask=with_mask,
+                dequant=self._dequant, spill_dedup=dedup,
                 residual_anchor=self._tok is not None)
         q = replicate(self.mesh, jnp.asarray(queries))
         args = [self._cent, self._cb, self._codes, self._offs, self._sizes,
@@ -1229,7 +1104,7 @@ class ShardedTreeXHybridSearcher(Searcher):
 
 def sharded_block_sweep_kernel(mesh: Mesh, *, pre_k: int, k: int,
                                measure: DistanceMeasure, r: int,
-                               tile_n: int, int8_sweep: bool,
+                               int8_sweep: bool,
                                aug_sn: float = 0.0,
                                db_axis: str = "db", dequant=None,
                                with_mask: bool = False,
@@ -1243,9 +1118,9 @@ def sharded_block_sweep_kernel(mesh: Mesh, *, pre_k: int, k: int,
     gather, the only non-local step).
 
     Per shard: block-min sweep over the local augmented block (the same
-    q-major / row-major kernel choice as the single-device pipeline via
-    sweep_block_candidates) -> local approx top-pre_k -> local exact re-rank
-    -> local top-k; [k]-sized exact partials all_gather + merge over ICI.
+    formulation as the single-device pipeline via sweep_block_candidates)
+    -> local approx top-pre_k -> local exact re-rank -> local top-k;
+    [k]-sized exact partials all_gather + merge.
     ``with_mask`` adds a restrict-allowlist penalty stream, fused into the
     per-shard sweep exactly as single-device (build_allow_penalty layout,
     rows already in the permuted order so the shard slice is local).
@@ -1291,8 +1166,6 @@ def sharded_block_sweep_kernel(mesh: Mesh, *, pre_k: int, k: int,
 
         pk = min(pre_k, blk // r)
         pv, cand = sweep_block_candidates(q_aug, aug_blk, pre_k=pk, r=r,
-                                          tile_n=tile_n,
-                                          interpret=not _on_tpu(),
                                           penalty=pen_blk, top2=top2)
         approx = sweep_approx_in_measure_units(pv, queries, measure)
         pre_valid = (pv < mask_cut) & (approx <= pre_eps)
@@ -1303,8 +1176,8 @@ def sharded_block_sweep_kernel(mesh: Mesh, *, pre_k: int, k: int,
             rows = rows.astype(jnp.float32) * dequant[0] + dequant[1]
         elif rows.dtype != jnp.float32:
             rows = rows.astype(jnp.float32)
-        # norms recomputed from the gathered f32 rows (per-element
-        # norm gathers cost ~20 ns each on TPU; identical math)
+        # norms recomputed from the gathered f32 rows (identical math, no
+        # per-element norm gather)
         nrm = jnp.sum(rows * rows, axis=-1)
         exact = gathered_distances(measure, queries, rows, nrm)
         exact = jnp.where(pre_valid, exact, MASKED_DISTANCE)
@@ -1324,7 +1197,6 @@ def _compute_sweep_shard_layout(sweep, n_sh: int) -> dict:
     from scann_tpu.ops.sweep_pallas import (
         build_augmented_db,
         build_int8_augmented_db,
-        qmajor_step_rows,
         shuffle_stride_for,
     )
     from scann_tpu.utils.reordering import encode_rerank_rows, rerank_codec
@@ -1333,11 +1205,10 @@ def _compute_sweep_shard_layout(sweep, n_sh: int) -> dict:
     data = sweep.dataset.numpy()
     n = sweep.dataset_size()
 
-    # per-shard blocks: a tile_n multiple that also covers the q-major
-    # step, so every shard runs the same kernel the single device does
-    unit = cfg.tile_n * (-(-qmajor_step_rows(cfg.block_r) // cfg.tile_n))
+    # per-shard blocks: a tile_n multiple, so every shard's block tiles
+    # exactly as the single-device copy does
     per_shard = -(-n // n_sh)
-    blk = int(align_up(per_shard, unit))
+    blk = int(align_up(per_shard, cfg.tile_n))
     n_pad = n_sh * blk
 
     if cfg.shuffle and n > 1:
@@ -1379,10 +1250,8 @@ def _compute_sweep_shard_layout(sweep, n_sh: int) -> dict:
 
 class ShardedBlockSweepSearcher(Searcher):
     """Block-min sweep with the augmented copy + rerank rows row-sharded
-    over the mesh — the scale-out of the flagship <=10M serving path (the
-    single-chip sweep is HBM-stream-bound, so N shards stream N x faster
-    and hold N x the rows; BENCH_NOTES 'only multi-chip sharding moves
-    it'). Wraps a single-device BlockSweepSearcher's config + dataset."""
+    over the mesh — the scale-out of the single-device sweep (each shard
+    streams and holds 1/N of the rows). Wraps a single-device BlockSweepSearcher's config + dataset."""
 
     def __init__(self, sweep, mesh: Optional[Mesh] = None,
                  layout: Optional[dict] = None):
@@ -1433,7 +1302,7 @@ class ShardedBlockSweepSearcher(Searcher):
     def save_layout(self, path: str) -> None:
         """Persist the per-shard layout (augmented sweep copy + permuted
         rerank rows) + the inner searcher so a restart skips the rebuild
-        (VERDICT r3 weak #5)."""
+       ."""
         from scann_tpu.io import save_sharded_layout
 
         save_sharded_layout(path, self)
@@ -1475,7 +1344,7 @@ class ShardedBlockSweepSearcher(Searcher):
         if key not in self._kernels:
             self._kernels[key] = sharded_block_sweep_kernel(
                 self.mesh, pre_k=pre_k, k=k, measure=self._measure,
-                r=cfg.block_r, tile_n=cfg.tile_n,
+                r=cfg.block_r,
                 int8_sweep=cfg.sweep_dtype == "int8", aug_sn=self._aug_sn,
                 dequant=self._dequant, with_mask=allow_mask is not None,
                 top2=cfg.top2)
@@ -1498,10 +1367,8 @@ class ShardedBlockSweepSearcher(Searcher):
             pen_dev = jax.device_put(
                 jnp.asarray(pen), NamedSharding(self.mesh, P("db", None)))
 
-        # chunk over max_batch like the single-device searcher (the top2
-        # tournament kernel needs ~2x the per-query VMEM, hence the halved
-        # cap — an uncapped replicated batch that serves fine single-device
-        # could exceed VMEM sharded)
+        # chunk over max_batch like the single-device searcher (top2
+        # doubles the per-query block-minima buffers, hence the halved cap)
         max_batch = cfg.max_batch // 2 if cfg.top2 else cfg.max_batch
         out_i, out_d = [], []
         for lo in range(0, len(queries), max_batch):

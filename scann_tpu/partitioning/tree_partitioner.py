@@ -42,7 +42,7 @@ class TreePartitionerConfig:
     # PartitioningConfig, config.rs:151-155, but never implements it)
     spilling: bool = False
     spilling_threshold: float = 0.1
-    # spilling_mode "soar" (TPU extension; Sun, Guo & Kumar, NeurIPS 2023):
+    # spilling_mode "soar" (extension; Sun, Guo & Kumar, NeurIPS 2023):
     # EVERY point gets one secondary partition chosen by the
     # orthogonality-amplified loss ||r2||^2 + lambda * <r2, r1_hat>^2 —
     # when a query aligns with the primary residual r1 (exactly the case
@@ -482,15 +482,15 @@ class TreePartitioner:
     # rows per tokenize device call: bounds the program's own padded copy
     # of its input to ~1 GB at 100d (assign_clusters pads [rows, D] to a
     # chunk multiple INSIDE the program — handing it the whole database in
-    # one call duplicates the full [N, D] array: at 20M x 100d that is a
-    # second 9.5 GB allocation, measured OOM against 15.75 GB HBM)
+    # one call duplicates the full [N, D] array: at 20M x 100d a second
+    # ~8 GB allocation)
     _TOKENIZE_ROWS = 1 << 21
 
     def tokenize(self, data: np.ndarray) -> np.ndarray:
         """Assign every row to its nearest centroid — chunked over rows at
         TWO levels: host-level slices cap the per-program input copy (see
         _TOKENIZE_ROWS), and assign_clusters chunks internally so the
-        [chunk, K] distance matrix never approaches HBM capacity (a full
+        [chunk, K] distance matrix never approaches device memory (a full
         [N, K] matrix at 1M x 8k partitions would be ~37GB)."""
         from scann_tpu.trees.kmeans import assign_clusters
 

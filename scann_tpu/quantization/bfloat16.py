@@ -1,9 +1,9 @@
 """bfloat16 dataset.
 
 The reference converts elementwise through the ``half`` crate
-(reference: src/quantization/bfloat16.rs:12-109); on TPU bfloat16 is a native
-dtype, so this is just a dataset whose device array is bf16 (2x compression,
-MXU-native matmuls).
+(reference: src/quantization/bfloat16.rs:12-109); on the device bfloat16 is
+a native dtype, so this is just a dataset whose device array is bf16 (2x
+compression, native bf16 matrix products).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """fp8 (E4M3 / E5M2) quantization.
 
 The reference hand-rolls the bit codec (reference: src/quantization/fp8.rs:
-64-220). On TPU fp8 is a native dtype (``jnp.float8_e4m3fn`` /
+64-220). In JAX fp8 is a native dtype (``jnp.float8_e4m3fn`` /
 ``jnp.float8_e5m2`` via ml_dtypes), so the codec is a dtype cast; we keep
 scalar ``encode``/``decode`` helpers for bit-level tests and a dataset
 container with a padded device view (4x compression).

@@ -224,18 +224,3 @@ class QuantizedDataset:
             codes_dev = jnp.asarray(codes)
             self._device_cache = (codes_dev, self._device_norms(codes_dev))
         return self._device_cache[0], self._device_cache[1], self.size
-
-    def device_transposed(self) -> Tuple[jnp.ndarray, jnp.ndarray, int]:
-        """([D, N_pad] uint8 transposed codes for the Pallas streaming path,
-        dequantized sq-norms [N_pad] f32, n). N padded to the Pallas tile."""
-        if getattr(self, "_device_cache_t", None) is None:
-            import jax
-            n = max(self.size, 1)
-            n_pad = align_up(n, 2048)
-            codes = np.zeros((n_pad, self.dimensionality), dtype=np.uint8)
-            codes[: self.size] = self.codes
-            codes_dev = jnp.asarray(codes)
-            norms = self._device_norms(codes_dev)
-            codes_t = jax.jit(lambda c: c.T)(codes_dev)  # transpose on device
-            self._device_cache_t = (codes_t, norms)
-        return self._device_cache_t[0], self._device_cache_t[1], self.size

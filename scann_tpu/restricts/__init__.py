@@ -1,7 +1,7 @@
 """Restricts (search-time filtering) and crowding (result diversity).
 
 Filters mirror the reference (reference: src/restricts/mod.rs:17-167,
-allowlist.rs, crowding.rs). The TPU-native twist: every filter can lower to
+allowlist.rs, crowding.rs). The device twist: every filter can lower to
 a **device mask** — a [N] bool array fused into the scoring program so
 disallowed candidates score the sentinel distance and never reach top-k; the
 predicate-composition API on the host stays identical to the reference.

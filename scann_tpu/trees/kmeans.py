@@ -3,7 +3,7 @@
 Replaces the reference's rayon/SIMD Lloyd's loop
 (reference: src/trees/kmeans.rs:150-431) with one jit-compiled program:
 
-  - assignment: chunked distance matmul [chunk, K] + argmin on the MXU
+  - assignment: chunked distance matmul [chunk, K] + argmin
     (reference's per-point scalar/SIMD loop, kmeans.rs:352-379)
   - update: ``segment_sum`` scatter-add + count division
     (reference's f64 accumulation loop, kmeans.rs:381-414); empty cluster i
@@ -84,10 +84,13 @@ def assign_clusters(
     """(assignments [N] int32, min squared distance [N] f32).
 
     Distances via ||x||^2 + ||c||^2 - 2 x.c computed chunk-by-chunk over N so
-    the [chunk, K] matrix stays modest for million-point datasets. Default
-    (bf16-pass) matmul precision: argmin assignment is insensitive to the
-    last bits and the single-pass program is far cheaper to compile and run
-    than the reference-exactness HIGHEST used on the query path.
+    the [chunk, K] matrix stays modest for million-point datasets.
+
+    Precision is deliberately left at the default here (TF32 on an NVIDIA
+    GPU, one bf16 pass elsewhere), unlike the HIGHEST of the query path:
+    only the argmin is used, it is insensitive to the last bits, and the
+    min distance feeds only the inertia/convergence check. Query-path
+    distances never come from this function.
     """
     n, d = data.shape
     chunk_size = adaptive_row_chunk(chunk_size, n, centers.shape[0])
@@ -167,12 +170,11 @@ def _kmeans_pp_init(key, data: jnp.ndarray, k: int) -> jnp.ndarray:
 def _lloyd_sums(data: jnp.ndarray, centers: jnp.ndarray, *, k: int,
                 chunk_size: int = 65536):
     """Traced body shared by _lloyd_step and _lloyd_partial: one fused
-    pass over the data in chunks: distances (MXU matmul) -> argmin ->
+    pass over the data in chunks: distances (matmul) -> argmin ->
     one-hot -> partial sums via a second matmul. The cluster-sum is
-    deliberately a one-hot matmul, NOT ``segment_sum`` — XLA's TPU
-    scatter-add lowering for a [1M, D] operand takes ~8 minutes to COMPILE
-    on a constrained host, while this formulation compiles in seconds and
-    runs at matmul speed. Returns (sums [k, D], counts [k], inertia)."""
+    deliberately a one-hot matmul, NOT ``segment_sum``: a scatter-add over
+    a [1M, D] operand can take minutes to compile, while this formulation
+    compiles in seconds and runs at matmul speed. Returns (sums [k, D], counts [k], inertia)."""
     data = data.astype(jnp.float32)
     centers = centers.astype(jnp.float32)
     n, d = data.shape

@@ -1,18 +1,16 @@
-"""Shared numeric/type helpers for TPU-friendly layouts.
+"""Shared numeric/type helpers: layout padding and the device dispatch.
 
 The reference pads rows to 64-byte cache lines for AVX2
 (reference: src/types.rs:285-297, src/data_format/dataset.rs:89-96).
-On TPU the analogous constraints are the (sublane, lane) tiles of the
-vector registers — f32 tiles are (8, 128) — so we pad the row count to a
-sublane multiple and keep a validity count, masking padded rows out of
-every scoring program.
+Here rows are padded to a small multiple and every scoring program keeps a
+validity count, masking padded rows out.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-# TPU vreg tiling (see pallas guide): last dim 128 lanes, sublane count by dtype.
+# Row-padding multiples by dtype (layouts only; no kernel depends on them).
 LANE = 128
 SUBLANE_F32 = 8
 SUBLANE_BF16 = 16
@@ -36,16 +34,26 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def is_tpu() -> bool:
-    """True when the default JAX backend is a real TPU — the ONE platform
-    probe every kernel-dispatch decision (Pallas vs XLA, interpret mode)
-    shares."""
-    try:
-        import jax
+def platform() -> str:
+    """The ONE device probe every stage's formulation choice shares:
+    ``"gpu"`` (NVIDIA card: the hand-written kernels that won their
+    measurement, see PERF.md) or ``"cpu"`` (tests: the plain jax.numpy/lax
+    formulation of every stage). Any other backend is unsupported."""
+    import jax
 
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # pragma: no cover - no backend at all
-        return False
+    from scann_tpu.errors import ScannError
+
+    plat = jax.devices()[0].platform
+    if plat in ("gpu", "cpu"):
+        return plat
+    raise ScannError.unimplemented(
+        f"unsupported JAX platform {plat!r}: scann_tpu runs on 'gpu' "
+        f"(CUDA) or 'cpu'")
+
+
+def use_gpu_kernels() -> bool:
+    """True when the hand-written GPU kernels serve (platform ``"gpu"``)."""
+    return platform() == "gpu"
 
 
 def pad_rows(arr: np.ndarray, multiple: int, fill=0) -> np.ndarray:

@@ -3,8 +3,8 @@
 The measured lever on adversarial (GloVe-shaped) data is partition-mass
 skew: Zipf cluster mass collapses tree-AH recall at matched p (0.9965 ->
 0.90) and inflates l_cap, and SOAR secondary assignments are the measured
-mitigation (BENCH_NOTES "Adversarial ... pareto": SOAR p=30 reaches 0.9931
-— recall the 1-assignment build cannot reach at any measured p). The
+mitigation (SOAR p=30 reaches recall the 1-assignment build cannot reach
+at any measured p). The
 reference leaves every one of these knobs to the user (its own defaults
 reach 0.23-0.41 recall, reference: README.md:713-716).
 
@@ -109,15 +109,15 @@ def advise_build(n: int, dim: int, sample: np.ndarray,
       (~600 points/partition);
     - SOAR turns ON when the sample's cluster mass is skewed OR the recall
       target is >= 0.99 (the measured regimes where 1-assignment recall
-      saturates below target, BENCH_NOTES adversarial pareto);
+      saturates below target);
     - the balance cap + straggler split stay on (pure win on skewed data:
       +20-28% QPS for <=1pp recall);
     - on skewed data ``partitions_to_search`` scales with the partition
       count, NOT a constant: recall at matched probe FRACTION is
       scale-invariant (measured: 1.5% of partitions gives 0.9909 at
       1.18M/2000 parts and 0.9892 at 10M/16k parts; a constant p=30 that
-      hit 0.99 at 1.18M probes only 0.19% at 16k and caps at 0.927 —
-      BENCH_NOTES round-5 "Adversarial 10M SOAR"). The fraction maps from
+      hit 0.99 at 1.18M probes only 0.19% at 16k and caps at 0.927). The
+      fraction maps from
       the target: ~1.5% for >=0.99, ~0.6% for 0.97 (measured 0.9722),
       ~0.4% for 0.95 (measured 0.9595). Friendly clustered data keeps
       constant p~10 (queries land on their centroid: 0.9935 at 10M/16k).
@@ -160,26 +160,25 @@ def advise_config(n: int, dim: int, sample: np.ndarray,
     ``auto_config``'s architecture assembly (shared, not duplicated) with
     the data-dependent knobs overridden from the sample statistics."""
     from scann_tpu.models.scann import auto_config
-    from scann_tpu.types import align_up
     from scann_tpu.utils.chip_profile import load_profile
 
     stats = dataset_stats(sample, seed=seed)
     cfg = auto_config(n, dim, measure)
     skew_sweep = False
     if cfg.brute_force is None and stats.skewed:
-        # The skewed regime BETWEEN sweep_max_n and the sweep's HBM
-        # ceiling: tree-AH's >=0.99 point under Zipf skew measured
-        # 4.1k QPS at 10M (p must probe 1.5% of 16k partitions,
-        # BENCH_NOTES round-5 "Adversarial 10M SOAR") while the sweep's
-        # stream cost is distribution-independent (27.7 ms -> 37k QPS at
-        # 10M) and its recall is measured skew-immune (0.9984 adversarial
-        # at 1.18M). Route skewed data to the sweep with compact copies
-        # (int8 stream + bf16 rerank rows — 3 bytes per lane-padded dim)
-        # until ~half of HBM is copies; only past that does the tree
-        # become the capacity-mandated choice.
+        # The skewed regime BETWEEN sweep_max_n and the sweep's memory
+        # ceiling: under Zipf skew tree-AH must probe a large fraction of
+        # its partitions to reach >=0.99, while the sweep's stream cost is
+        # distribution-independent and its recall skew-immune (it scores
+        # every row). Route skewed data to the sweep with compact copies
+        # (int8 stream + bf16 rerank rows) until ~half of device memory is
+        # copies; only past that does the tree become the
+        # capacity-mandated choice.
+        from scann_tpu.ops.sweep_pallas import augmented_dim
+
         prof = load_profile()
         hbm = 3 * prof.f32_rerank_max_bytes
-        ceil_n = int(0.5 * hbm / (align_up(dim, 128) * 3))
+        ceil_n = int(0.5 * hbm / (augmented_dim(dim, extra=3) + 2 * dim))
         if n <= ceil_n:
             from scann_tpu.config import ScannConfig
 

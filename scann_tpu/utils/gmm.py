@@ -1,9 +1,9 @@
 """Gaussian mixture model via EM (reference: src/utils/gmm.rs:12-601).
 
-TPU-native: the entire EM fit is ONE jitted device program — a
+On the device the entire EM fit is ONE jitted device program — a
 ``lax.while_loop`` whose body runs the E-step (vectorized log densities +
 log-sum-exp responsibilities over all components at once) and the M-step
-(MXU contractions ``resp.T @ x`` / batched covariance einsums) — so a fit
+(matrix contractions ``resp.T @ x`` / batched covariance einsums) — so a fit
 is a single dispatch regardless of iteration count. Covariance types:
 full (batched Cholesky) / diagonal / spherical. BIC/AIC for model
 selection; sampling stays host-side (np RNG).

@@ -73,8 +73,7 @@ def rerank_codec(data: np.ndarray, n: int, dtype: str):
     so a wide-range dimension cannot destroy the resolution of every
     other one the way one global (scale, min) does — measured at 20M the
     global codec cost 3.5pp recall@10 vs bf16 at the same config while
-    the per-dim sweep path did not (VERDICT r4 weak #1; the same
-    granularity ops/sweep_pallas.build_int8_augmented_db already uses).
+    the per-dim sweep path did not (the same granularity ops/sweep_pallas.build_int8_augmented_db already uses).
     The dequant broadcast over the trailing axis costs the kernels
     nothing. The reference declares quantized reordering but never
     implements it (config.rs:290-318); its scalar codec is global
@@ -114,8 +113,8 @@ def residual_rerank_codec(data: np.ndarray, n: int, tokens: np.ndarray,
     On clustered data (every production ≥10M workload here) the residual
     range is the within-cluster noise scale, not the cluster spread, so the
     256 levels resolve what actually separates near-neighbors — the
-    mechanism behind the global codec's measured 3.5pp recall@10 loss at
-    20M (BENCH_NOTES round 4). The anchors are the tree's own partition
+    mechanism behind the global codec's recall@10 loss at 20M. The
+    anchors are the tree's own partition
     centroids: zero extra training, one extra [N] int32 token table, and a
     small-table centroid gather fused after the candidate gather.
 
@@ -124,8 +123,7 @@ def residual_rerank_codec(data: np.ndarray, n: int, tokens: np.ndarray,
     scalar.rs:103-130): over 20M rows the exact per-dim extremes are
     ~±8-10σ outliers, and spending the 256 levels on them triples the
     quantization step for the 99.99% of mass inside ±4σ. Measured on the
-    cached 20M workload's true-candidate rerank (BENCH_NOTES round-5
-    "20M rerank fidelity"), min/max calibration loses ~2.4pp recall@10 vs
+    20M workload's true-candidate rerank, min/max calibration loses ~2.4pp recall@10 vs
     bf16 while ±4σ clipping recovers most of it. Clipped rows saturate —
     exact for ranking purposes at these tail probabilities.
 
@@ -172,8 +170,8 @@ def build_residual_rerank_store(data: np.ndarray, n: int, tokens: np.ndarray,
     after the gather. Norms come from the SAME dequantized rows the
     gathers produce. ``levels=65535`` gives the int16 store: bf16's byte
     cost with a ~256x finer step on the RESIDUAL scale — measured
-    re-ranking essentially exactly where bf16 loses 0.55pp in-pool at 20M
-    (BENCH_NOTES round-5 fidelity study)."""
+    re-ranking essentially exactly where bf16 loses 0.55pp in-pool at
+    20M."""
     from scann_tpu.types import align_up
 
     encode, (scale, mn) = residual_rerank_codec(data, n, tokens, centers,
@@ -275,14 +273,12 @@ def build_csr_rerank_store(data: np.ndarray, perm: np.ndarray,
     The tree-AH pipeline resolves candidate CSR rows arithmetically after
     selection (models/tree_x_hybrid.candidate_rows_from_positions) — but
     translating those rows to original ids for the rerank gather costs a
-    ``[B, sel_k]`` scalar gather over the [N_csr] perm table at ~20 ns per
-    element (~12 ms/batch at B=1024, sel=600: BENCH_NOTES round-5 stage
-    decomposition). Storing the rerank rows in CSR order instead makes the
-    row gather take CSR positions DIRECTLY, and the id rides along in
-    lanes the (8,128) lane tiling already pads to nothing: [N, 100] f32
-    occupies 128 lanes on device either way, so 104 data+id lanes cost
-    zero extra HBM at mult=1. Under spilling the store carries one row per
-    ASSIGNMENT (×multiplicity HBM) — the layout is opt-in there.
+    ``[B, sel_k]`` scalar gather over the [N_csr] perm table. Storing the
+    rerank rows in CSR order instead makes the row gather take CSR
+    positions DIRECTLY, and the id rides along in ``ID_LANES`` extra
+    columns (104 instead of 100 at d=100). Under spilling the store
+    carries one row per ASSIGNMENT (×multiplicity memory) — the layout is
+    opt-in there.
 
     Digits are base-256 (exact in bf16's 8-bit mantissa, in f32, and raw
     in u8); alignment-gap rows encode data[perm[gap]]=data[0] with id 0
@@ -290,8 +286,8 @@ def build_csr_rerank_store(data: np.ndarray, perm: np.ndarray,
     today. Returns the [N_csr, D+ID_LANES] device array (bf16 / f32).
 
     Reference: no counterpart — reordering.rs:22-94 re-scores on the host
-    where "gather" is a pointer chase; this layout exists because TPU
-    scalar gathers are the one operation the hardware prices per element.
+    where "gather" is a pointer chase; on a device a per-element scalar
+    gather is a separate dependent pass, which this layout removes.
     """
     d = data.shape[1]
     n_csr = len(perm)

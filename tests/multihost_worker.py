@@ -86,7 +86,7 @@ print(f"proc {proc_id}: multihost sharded search OK", flush=True)
 
 # ---------------------------------------------------------------------------
 # flagship across the process boundary: tree-×-AH with partitions bin-packed
-# over BOTH processes' devices (VERDICT r2 #9). Every process builds the
+# over BOTH processes' devices. Every process builds the
 # same deterministic single-device index; the sharded wrapper places each
 # partition's CSR block + raw rows on its owning device, and the [k]-sized
 # exact partials merge across the gloo process boundary.

@@ -97,7 +97,7 @@ def test_autotune_cosine_measure(clustered):
     assert rec >= 0.9
 
 
-# -- build-knob autotuning + advisor (VERDICT r3 next #5) --------------------
+# -- build-knob autotuning + advisor --------------------
 
 
 def test_autotune_block_sweep_build_knobs(clustered):
@@ -155,8 +155,7 @@ def test_advisor_p_scales_with_partition_count():
     """On skewed data partitions_to_search tracks the probe FRACTION, not
     a constant: recall at matched fraction is scale-invariant (1.5% ->
     0.9909 at 1.18M/2000 parts, 0.9892 at 10M/16k; constant p=30 at 16k
-    probes 0.19% and caps at 0.927 — BENCH_NOTES round-5 adversarial
-    10M)."""
+    probes 0.19% and caps at 0.927)."""
     from scann_tpu.harness.ann_benchmark import generate_adversarial_dataset
     from scann_tpu.utils.advisor import advise_build
 
@@ -195,8 +194,8 @@ def test_chip_profile_round_trip_and_override(tmp_path, monkeypatch):
 
 def test_scann_auto_meets_target_on_adversarial(monkeypatch):
     """Scann.auto(target_recall=0.99) on (small-scale) adversarial data:
-    no hand-set knobs, serving recall meets the target (VERDICT r3 next
-    #5 done-criterion, pinned at test scale)."""
+    no hand-set knobs, serving recall meets the target (pinned at test
+    scale)."""
     from scann_tpu import Scann
     from scann_tpu.harness.ann_benchmark import generate_adversarial_dataset
 
@@ -211,10 +210,8 @@ def test_scann_auto_meets_target_on_adversarial(monkeypatch):
 
 
 def test_advise_config_skew_routes_to_sweep(monkeypatch, tmp_path):
-    """Skewed data between sweep_max_n and the sweep's HBM ceiling routes
-    to the skew-immune sweep with compact copies (measured 9x the tree's
-    >=0.99 SOAR QPS at 10M — BENCH_NOTES round-5 'Adversarial 10M
-    SOAR')."""
+    """Skewed data between sweep_max_n and the sweep's device-memory
+    ceiling routes to the skew-immune sweep with compact copies."""
     from scann_tpu.harness.ann_benchmark import generate_adversarial_dataset
     from scann_tpu.utils.advisor import advise_config
     from scann_tpu.utils.chip_profile import ChipProfile, save_profile
@@ -244,12 +241,13 @@ def test_scann_auto_tree_regime_uses_advisor(monkeypatch, tmp_path):
     from scann_tpu.utils.chip_profile import ChipProfile, save_profile
 
     path = str(tmp_path / "chip.json")
-    # f32_rerank_max_bytes tiny too: skewed data below the sweep's HBM
-    # ceiling now (correctly) routes back to the skew-immune sweep, so
+    # f32_rerank_max_bytes tiny too: skewed data below the sweep's memory
+    # ceiling (correctly) routes back to the skew-immune sweep, so
     # exercising the advisor's TREE path requires the capacity-mandated
-    # regime (ceiling = 0.5*hbm/(128*3) rows must sit below N)
+    # regime (ceiling = 0.5*3*f32_bytes / (64 + 2*32) bytes per row at
+    # d=32 must sit below N)
     save_profile(ChipProfile(sweep_max_n=1000, partition_density=300,
-                             f32_rerank_max_bytes=500_000,
+                             f32_rerank_max_bytes=300_000,
                              source="test"), path)
     monkeypatch.setenv("SCANN_TPU_CHIP_PROFILE", path)
     data = generate_adversarial_dataset(6000, 32, 24, 10, seed=5)

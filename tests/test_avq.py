@@ -1,6 +1,6 @@
 """Anisotropic (score-aware) quantization tests — hashes/avq.py.
 
-TPU extension beyond the reference: the reference trains plain
+Extension beyond the reference: the reference trains plain
 reconstruction-loss PQ only (src/hashes/codebook.rs:146-202). These tests
 pin the AVQ math (loss monotonicity, closed-form update correctness via
 loss descent) and measure the deliverable: better MIPS recall at the same

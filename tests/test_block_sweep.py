@@ -15,8 +15,12 @@ from scann_tpu import (
 from scann_tpu.ops.sweep_pallas import (
     BLOCK_MASK_VALUE,
     _augment_queries,
-    block_min_sweep_pallas,
+    _augment_queries_int8,
+    block_minima_pallas,
+    block_minima_xla,
+    build_allow_penalty,
     build_augmented_db,
+    build_int8_augmented_db,
 )
 
 
@@ -26,7 +30,8 @@ def rng():
 
 
 def test_block_min_sweep_matches_jnp(rng):
-    """Pallas kernel vs a jnp program with identical numerics."""
+    """Plain block-minima formulation vs an exhaustive numpy reference:
+    query-major minima of contiguous r-row blocks, in-block argmins."""
     n, d, b, r, tile_n = 1024, 24, 16, 8, 256
     db = rng.normal(size=(n, d)).astype(np.float32)
     q = rng.normal(size=(b, d)).astype(np.float32)
@@ -35,18 +40,73 @@ def test_block_min_sweep_matches_jnp(rng):
                                          tile_n=tile_n))
     q_aug = _augment_queries(jnp.asarray(q), DistanceMeasure.SQUARED_L2,
                              aug.shape[1])
-    vals, locs = block_min_sweep_pallas(q_aug, aug, tile_n=tile_n, r=r,
-                                        interpret=True)
-    scores = jnp.dot(aug.astype(jnp.float32), q_aug.astype(jnp.float32).T)
-    s3 = np.asarray(scores).reshape(aug.shape[0] // r, r, -1)
+    vals, locs = block_minima_xla(q_aug, aug, r=r)
+    assert vals.shape == (b, aug.shape[0] // r)
+    scores = np.asarray(jnp.dot(q_aug.astype(jnp.float32),
+                                aug.astype(jnp.float32).T))
+    s3 = scores.reshape(b, -1, r)
     # ULP-level accumulation-order differences between the two programs
-    np.testing.assert_allclose(np.asarray(vals), s3.min(axis=1),
+    np.testing.assert_allclose(np.asarray(vals), s3.min(axis=2),
                                rtol=1e-5, atol=1e-5)
     # argmin comparison via achieved value
-    pick = np.take_along_axis(s3, np.asarray(locs)[:, None, :], axis=1)[:, 0]
-    np.testing.assert_allclose(pick, s3.min(axis=1), rtol=1e-5, atol=1e-5)
+    pick = np.take_along_axis(s3, np.asarray(locs)[..., None], axis=2)[..., 0]
+    np.testing.assert_allclose(pick, s3.min(axis=2), rtol=1e-5, atol=1e-5)
     # masked tail blocks carry the sentinel
-    assert np.all(np.asarray(vals)[(n_valid // r) + 1:] >= BLOCK_MASK_VALUE / 2)
+    assert np.all(np.asarray(vals)[:, (n_valid // r) + 1:]
+                  >= BLOCK_MASK_VALUE / 2)
+
+
+def _sweep_inputs(rng, rows, n=1024, d=24, b=16, n_valid=None):
+    db = rng.normal(size=(n, d)).astype(np.float32)
+    q = jnp.asarray(rng.normal(size=(b, d)).astype(np.float32))
+    n_valid = n - 100 if n_valid is None else n_valid
+    if rows == "bf16":
+        aug = jnp.asarray(build_augmented_db(
+            db, n_valid, DistanceMeasure.SQUARED_L2, tile_n=256))
+        return aug, _augment_queries(q, DistanceMeasure.SQUARED_L2,
+                                     aug.shape[1]), BLOCK_MASK_VALUE
+    codes, scales, sn = build_int8_augmented_db(
+        db, n_valid, DistanceMeasure.SQUARED_L2, tile_n=256)
+    qa = _augment_queries_int8(q, DistanceMeasure.SQUARED_L2,
+                               jnp.asarray(scales), sn, codes.shape[1])
+    from scann_tpu.ops.sweep_pallas import INT8_NORM_DIGIT_MAX
+
+    return jnp.asarray(codes), qa, 4.0 * INT8_NORM_DIGIT_MAX * sn
+
+
+@pytest.mark.parametrize("top2", [False, True])
+@pytest.mark.parametrize("pen", [False, True])
+@pytest.mark.parametrize("rows", ["bf16", "int8"])
+@pytest.mark.parametrize("r", [8, 32, 64])
+def test_block_minima_kernel_matches_plain(rng, r, rows, pen, top2):
+    """Triton-route sweep kernel (interpret mode) vs the plain formulation:
+    same minima (up to f32 summation order), in-block argmins that
+    achieve them, for bf16/int8 rows, with and without the allow penalty
+    and the second-smallest pair."""
+    aug, qa, mask_value = _sweep_inputs(rng, rows)
+    penalty = None
+    if pen:
+        mask = rng.random(aug.shape[0]) < 0.3
+        penalty = jnp.asarray(build_allow_penalty(
+            mask, aug.shape[0], r, mask_value=mask_value))
+    got = block_minima_pallas(qa, aug, penalty, r=r, top2=top2,
+                              interpret=True)
+    want = block_minima_xla(qa, aug, penalty, r=r, top2=top2)
+    assert len(got) == len(want) == (4 if top2 else 2)
+    scores = np.asarray(jnp.dot(qa.astype(jnp.float32),
+                                aug.astype(jnp.float32).T))
+    if penalty is not None:
+        scores = scores + np.asarray(penalty, np.float32).reshape(-1)[None]
+    s3 = scores.reshape(qa.shape[0], -1, r)
+    scale = np.abs(s3).max()
+    for v, loc, w in zip(got[::2], got[1::2], want[::2]):
+        np.testing.assert_allclose(np.asarray(v), np.asarray(w),
+                                   rtol=1e-5, atol=1e-6 * scale)
+        pick = np.take_along_axis(s3, np.asarray(loc)[..., None], 2)[..., 0]
+        np.testing.assert_allclose(pick, np.asarray(w),
+                                   rtol=1e-5, atol=1e-6 * scale)
+    if top2:
+        assert np.all(np.asarray(got[1]) != np.asarray(got[3]))
 
 
 @pytest.mark.parametrize("measure", [DistanceMeasure.SQUARED_L2,
@@ -115,9 +175,7 @@ def test_block_sweep_odd_batch_and_single_query(rng):
 
 
 def test_block_min2_matches_exhaustive(rng):
-    """Top-2 tournament kernel: (v1,l1,v2,l2) vs a numpy partial sort."""
-    from scann_tpu.ops.sweep_pallas import block_min2_sweep_pallas
-
+    """Top-2 minima (v1,l1,v2,l2) vs a numpy partial sort."""
     n, d, b, r, tile_n = 512, 16, 16, 8, 128
     db = rng.normal(size=(n, d)).astype(np.float32)
     q = rng.normal(size=(b, d)).astype(np.float32)
@@ -125,19 +183,18 @@ def test_block_min2_matches_exhaustive(rng):
                                          tile_n=tile_n))
     q_aug = _augment_queries(jnp.asarray(q), DistanceMeasure.SQUARED_L2,
                              aug.shape[1])
-    v1, l1, v2, l2 = block_min2_sweep_pallas(q_aug, aug, tile_n=tile_n, r=r,
-                                             interpret=True)
-    scores = np.asarray(jnp.dot(aug.astype(jnp.float32),
-                                q_aug.astype(jnp.float32).T))
-    s3 = scores.reshape(-1, r, b)
-    order = np.argsort(s3, axis=1, kind="stable")
-    want1 = np.take_along_axis(s3, order[:, :1], axis=1)[:, 0]
-    want2 = np.take_along_axis(s3, order[:, 1:2], axis=1)[:, 0]
+    v1, l1, v2, l2 = block_minima_xla(q_aug, aug, r=r, top2=True)
+    scores = np.asarray(jnp.dot(q_aug.astype(jnp.float32),
+                                aug.astype(jnp.float32).T))
+    s3 = scores.reshape(b, -1, r)
+    order = np.argsort(s3, axis=2, kind="stable")
+    want1 = np.take_along_axis(s3, order[..., :1], axis=2)[..., 0]
+    want2 = np.take_along_axis(s3, order[..., 1:2], axis=2)[..., 0]
     np.testing.assert_allclose(np.asarray(v1), want1, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(np.asarray(v2), want2, rtol=1e-5, atol=1e-5)
     # locations achieve their values and differ
-    got1 = np.take_along_axis(s3, np.asarray(l1)[:, None, :], axis=1)[:, 0]
-    got2 = np.take_along_axis(s3, np.asarray(l2)[:, None, :], axis=1)[:, 0]
+    got1 = np.take_along_axis(s3, np.asarray(l1)[..., None], axis=2)[..., 0]
+    got2 = np.take_along_axis(s3, np.asarray(l2)[..., None], axis=2)[..., 0]
     np.testing.assert_allclose(got1, want1, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got2, want2, rtol=1e-5, atol=1e-5)
     assert np.all(np.asarray(l1) != np.asarray(l2))
@@ -377,83 +434,6 @@ def test_int8_sweep_io_roundtrip(rng, tmp_path):
     np.testing.assert_allclose(d0, d1, rtol=1e-6)
 
 
-def test_qmajor_kernel_parity(rng):
-    """Query-major sweep kernel (TPU serving path) vs exhaustive reference:
-    contiguous-block minima and within-block locs (block g = rows
-    g*r..g*r+r-1, same reconstruction as the row-major kernel). Interpret
-    mode at a shape the XLA:CPU interpreter handles (see
-    sweep_search_kernel's gate)."""
-    import jax.numpy as jnp
-
-    from scann_tpu.ops.sweep_pallas import (
-        block_min_sweep_qmajor_pallas,
-        qmajor_step_rows,
-        qmajor_supported,
-    )
-
-    n, d, b, r = 8192, 48, 8, 32
-    step = qmajor_step_rows(r)
-    assert qmajor_supported(n, b, r)
-    db = rng.normal(size=(n, d)).astype(np.float32)
-    q = rng.normal(size=(b, d)).astype(np.float32)
-    aug = jnp.asarray(build_augmented_db(db, n, DistanceMeasure.SQUARED_L2,
-                                         tile_n=step))
-    qa = _augment_queries(jnp.asarray(q), DistanceMeasure.SQUARED_L2,
-                          aug.shape[1])
-    vals, locs = block_min_sweep_qmajor_pallas(qa, aug, r=r, interpret=True)
-    assert vals.shape == (b, n // r) and locs.shape == (b, n // r)
-    scores = np.asarray(
-        jnp.dot(aug.astype(jnp.float32), qa.astype(jnp.float32).T)).T
-    # blocks are contiguous: block g covers rows g*r .. g*r+r-1
-    ref = scores.reshape(b, n // r, r).min(axis=2)
-    np.testing.assert_allclose(np.asarray(vals), ref, rtol=1e-4, atol=1e-4)
-    pick = np.take_along_axis(scores.reshape(b, n // r, r),
-                              np.asarray(locs)[..., None], axis=2)[..., 0]
-    np.testing.assert_allclose(pick, ref, rtol=1e-4, atol=1e-4)
-
-
-def test_qmajor_compact_kernel_parity(rng):
-    """Compact (bf16 vals + u8 locs) q-major kernel vs the f32/i32 one:
-    identical argmins, values equal up to bf16 rounding — the TPU serving
-    path's minima layout (one third the minima HBM traffic)."""
-    import jax.numpy as jnp
-
-    from scann_tpu.ops.sweep_pallas import (
-        block_min_sweep_qmajor_pallas,
-        qmajor_step_rows,
-        qmajor_supported,
-    )
-
-    n, d, b, r = 8192, 48, 8, 32
-    step = qmajor_step_rows(r)
-    assert qmajor_supported(n, b, r)
-    db = rng.normal(size=(n, d)).astype(np.float32)
-    q = rng.normal(size=(b, d)).astype(np.float32)
-    aug = jnp.asarray(build_augmented_db(db, n, DistanceMeasure.SQUARED_L2,
-                                         tile_n=step))
-    qa = _augment_queries(jnp.asarray(q), DistanceMeasure.SQUARED_L2,
-                          aug.shape[1])
-    vf, lf = block_min_sweep_qmajor_pallas(qa, aug, r=r, interpret=True)
-    vc, lc = block_min_sweep_qmajor_pallas(qa, aug, r=r, interpret=True,
-                                           compact=True)
-    assert vc.dtype == jnp.bfloat16 and lc.dtype == jnp.uint8
-    np.testing.assert_array_equal(np.asarray(lc).astype(np.int32),
-                                  np.asarray(lf))
-    np.testing.assert_allclose(np.asarray(vc.astype(jnp.float32)),
-                               np.asarray(vf), rtol=1e-2, atol=1e-2)
-    with pytest.raises(ValueError):
-        block_min_sweep_qmajor_pallas(qa, aug, r=512, interpret=True,
-                                      compact=True)
-
-
-def test_qmajor_supported_gates():
-    from scann_tpu.ops.sweep_pallas import qmajor_supported
-
-    assert qmajor_supported(8192, 1024, 32)
-    assert not qmajor_supported(8192 + 2048, 1024, 32)  # step misaligned
-    assert not qmajor_supported(2 ** 20, 8192, 64)      # VMEM cap
-
-
 # -- fused restrict allowlist (penalty stream) --------------------------------
 
 def _masked_gt(db, q, mask, k):
@@ -544,42 +524,3 @@ def test_block_sweep_allow_mask_int8_and_top2(rng):
         recall = np.mean([len(set(a[a >= 0].tolist()) & set(g.tolist())) / k
                           for a, g in zip(idx, gt)])
         assert recall >= 0.9, (cfg.sweep_dtype, cfg.top2, recall)
-
-
-def test_qmajor_kernel_penalty_parity(rng):
-    """Penalty stream in the q-major kernels (TPU serving path) matches the
-    row-major kernel and the jnp reference with the same penalty."""
-    import jax.numpy as jnp
-
-    from scann_tpu.ops.sweep_pallas import (
-        block_min_sweep_pallas,
-        block_min_sweep_qmajor_pallas,
-        build_allow_penalty,
-        qmajor_supported,
-    )
-
-    n, d, b, r = 2048, 24, 8, 8
-    assert qmajor_supported(n, b, r)
-    db = rng.normal(size=(n, d)).astype(np.float32)
-    q = rng.normal(size=(b, d)).astype(np.float32)
-    mask = rng.random(n) < 0.1
-    aug = jnp.asarray(build_augmented_db(db, n, DistanceMeasure.SQUARED_L2,
-                                         tile_n=1024))
-    qa = _augment_queries(jnp.asarray(q), DistanceMeasure.SQUARED_L2,
-                          aug.shape[1])
-    pen = jnp.asarray(build_allow_penalty(mask, n, r))
-    vq, lq = block_min_sweep_qmajor_pallas(qa, aug, r=r, interpret=True,
-                                           penalty=pen)
-    vc, lc = block_min_sweep_qmajor_pallas(qa, aug, r=r, interpret=True,
-                                           compact=True, penalty=pen)
-    vr, lr = block_min_sweep_pallas(qa, aug, tile_n=1024, r=r,
-                                    interpret=True, penalty=pen)
-    scores = np.asarray(
-        jnp.dot(aug.astype(jnp.float32), qa.astype(jnp.float32).T)).T
-    scores = scores + np.asarray(pen, np.float32).reshape(-1)[None, :]
-    ref = scores.reshape(b, n // r, r).min(axis=2)
-    np.testing.assert_allclose(np.asarray(vq), ref, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(vr).T, ref, rtol=1e-4, atol=1e-4)
-    np.testing.assert_array_equal(np.asarray(lq), np.asarray(lr).T)
-    np.testing.assert_array_equal(np.asarray(lc).astype(np.int32),
-                                  np.asarray(lq))

@@ -112,21 +112,3 @@ def test_mutation_invalidates_device_cache(rng):
     res = s.search(far, 1)
     assert res.neighbors[0].index == 10
     assert res.neighbors[0].distance == pytest.approx(0.0, abs=1e-4)
-
-
-def test_fused_vmem_gate_is_batch_aware():
-    """The fused single-kernel path holds the [B, N] distance matrix (and a
-    same-shaped iota) in VMEM, so eligibility must scale with batch size:
-    a 20k x 64d database passed the old db-only check but OOMed scoped VMEM
-    at B=200 (measured 17.8M > the 16M hardware limit)."""
-    from unittest import mock
-
-    s = BruteForceSearcher(DenseDataset(np.zeros((10_000, 64), np.float32)))
-    big = BruteForceSearcher(DenseDataset(np.zeros((20_000, 64), np.float32)))
-    fake_tpu = [type("D", (), {"platform": "tpu"})()]
-    with mock.patch("jax.devices", return_value=fake_tpu):
-        assert s._use_fused_vmem(10, None, 100)        # the headline shape
-        assert s._use_fused_vmem(10, None, 16)
-        assert not s._use_fused_vmem(10, None, 200)    # dists+iota > budget
-        assert not big._use_fused_vmem(10, None, 200)  # the measured OOM
-        assert not s._use_fused_vmem(17, None, 16)     # k cap unchanged

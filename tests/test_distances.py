@@ -3,7 +3,7 @@
 Mirrors the reference's inline distance tests
 (reference: src/distance_measures/one_to_one.rs:659-743) plus differential
 tests of the matmul path against a straightforward numpy implementation —
-the TPU analog of the reference's SIMD-vs-portable parity tests
+the device analog of the reference's SIMD-vs-portable parity tests
 (reference: src/distance_measures/one_to_many_asymmetric.rs:489-543).
 """
 

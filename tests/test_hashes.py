@@ -226,7 +226,7 @@ def test_hasher_unbuilt_rejected():
 
 
 def test_hasher_cosine_and_mips(rng):
-    """AsymmetricHasher measure support (TPU extension — the reference
+    """AsymmetricHasher measure support (extension — the reference
     hardcodes SquaredL2, hasher.rs:208): cosine via build/search
     normalization, MIPS via -dot LUTs."""
     n, d, b, k = 4000, 32, 24, 10

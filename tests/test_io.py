@@ -131,7 +131,7 @@ def test_block_sweep_round_trip(tmp_path, rng):
     np.testing.assert_allclose(d1, d2, rtol=1e-6)
 
 
-# -- sharded serving-layout warm start (VERDICT r3 next #7) ------------------
+# -- sharded serving-layout warm start ------------------
 
 
 def test_sharded_tree_layout_round_trip(tmp_path):
@@ -218,13 +218,12 @@ def test_sharded_sweep_layout_round_trip(tmp_path):
 
 
 def test_sharded_tree_layout_round_trip_custom_l_tile(tmp_path):
-    """Warm start with a non-default score_l_tile: the saved layout's l_cap
-    is aligned to the BUILD-time l_tile, so the inner config's serving
-    knobs must round-trip or the restored server dies on its first query
-    (regression: _serialize omitted score_l_tile/group_q_cap/pack_codes)."""
+    """Warm start: a saved sharded layout (l_cap aligned to the leaf
+    scorer's L-tile at save time) restores and serves bit-identically."""
     from scann_tpu import SearchParameters
     from scann_tpu.hashes.hasher import AsymmetricHasherConfig
     from scann_tpu.models.tree_x_hybrid import TreeXHybridConfig, TreeXHybridSearcher
+    from scann_tpu.ops.tree_ah_grouped import L_TILE
     from scann_tpu.parallel.mesh import make_mesh
     from scann_tpu.parallel.sharded_flagship import ShardedTreeXHybridSearcher
 
@@ -233,20 +232,18 @@ def test_sharded_tree_layout_round_trip_custom_l_tile(tmp_path):
     q = rng.normal(size=(8, 16)).astype(np.float32)
     inner = TreeXHybridSearcher(TreeXHybridConfig(
         num_partitions=12, partitions_to_search=6,
-        score_l_tile=128, group_q_cap=4,
         hash_config=AsymmetricHasherConfig(num_codes=16, num_subspaces=4,
                                            seed=0, max_iterations=4),
     )).build(DenseDataset(db))
     mesh = make_mesh(4, axis_names=("db",))
-    sh = ShardedTreeXHybridSearcher(inner, mesh, force_kernel="grouped")
+    sh = ShardedTreeXHybridSearcher(inner, mesh)
+    assert sh._l_cap % L_TILE == 0
     path = str(tmp_path / "layout128.npz")
     sh.save_layout(path)
     params = SearchParameters(pre_reordering_num_neighbors=48)
     i1, d1 = sh.search_batched_arrays(q, 5, params)
-    sh2 = ShardedTreeXHybridSearcher.load_layout(path, mesh,
-                                                 force_kernel="grouped")
-    assert sh2._inner.config.score_l_tile == 128
-    assert sh2._inner.config.group_q_cap == 4
+    sh2 = ShardedTreeXHybridSearcher.load_layout(path, mesh)
+    assert sh2._l_cap == sh._l_cap
     i2, d2 = sh2.search_batched_arrays(q, 5, params)
     np.testing.assert_array_equal(i1, i2)
     np.testing.assert_allclose(d1, d2, rtol=1e-5, atol=1e-5)
@@ -274,9 +271,9 @@ def test_load_index_rejects_sharded_layout_file(tmp_path, db, rng):
 
 
 def test_tree_ah_legacy_save_serving_knob_defaults(tmp_path, db, rng):
-    """Indexes saved before the group_q_cap/pack_codes knobs existed must
-    reload with the fixed q_cap=8 unpacked slab those builds defaulted to,
-    not the new adaptive/auto-pack behavior (advisor r4 finding)."""
+    """Indexes saved with the retired kernel-shape keys (score_l_tile,
+    group_q_cap, pack_codes) reload and serve identically: the slab layout
+    now follows the platform's leaf scorer, so the keys are ignored."""
     import json as _json
 
     s = TreeXHybridSearcher(TreeXHybridConfig(
@@ -286,21 +283,13 @@ def test_tree_ah_legacy_save_serving_knob_defaults(tmp_path, db, rng):
     )).build(DenseDataset(db))
     p = str(tmp_path / "legacy.npz")
     save_index(p, s)
-    # simulate a pre-knob save: strip the keys from the meta envelope
     with np.load(p, allow_pickle=False) as z:
         meta = _json.loads(bytes(z["__meta__"]).decode())
         arrays = {k: z[k] for k in z.files if k != "__meta__"}
-    for key in ("group_q_cap", "pack_codes", "score_l_tile"):
-        meta.pop(key, None)
+    assert "score_l_tile" not in meta
+    meta.update(score_l_tile=512, group_q_cap=8, pack_codes=False)
     np.savez_compressed(p, __meta__=np.frombuffer(
         _json.dumps(meta).encode(), dtype=np.uint8), **arrays)
     s2 = load_index(p)
-    assert s2.config.group_q_cap == 8
-    assert s2.config.pack_codes is False
-    # a fresh save still round-trips the modern defaults (None = adaptive)
-    p2 = str(tmp_path / "modern.npz")
-    save_index(p2, s)
-    s3 = load_index(p2)
-    assert s3.config.group_q_cap is None
-    assert s3.config.pack_codes is None
+    assert not hasattr(s2.config, "score_l_tile")
     _same_results(s, s2, rng.normal(size=(4, 16)).astype(np.float32))

@@ -91,7 +91,7 @@ def test_provided_init_requires_centers(rng):
 
 def test_lloyd_step_sliced_matches_single_program(rng):
     """Host-sliced Lloyd (for device arrays whose single-program pad copy
-    would not fit HBM — measured 9.54 GB duplicate at 20M x 100d) must be
+    would not fit device memory — a ~8 GB duplicate at 20M x 100d) must be
     numerically equivalent to the one-program step."""
     import jax.numpy as jnp
 

@@ -232,8 +232,7 @@ def test_dynamic_searcher_heavy_deletes(rng):
 
 
 def test_dynamic_searcher_allow_mask_and_params(rng):
-    """SearchParameters + allow_mask through the mutable index (VERDICT r3
-    weak #3 / next #4): epsilons filter exact distances; the allowlist
+    """SearchParameters + allow_mask through the mutable index: epsilons filter exact distances; the allowlist
     filters main candidates AND the delta slab by point id."""
     from scann_tpu import SearchParameters
 

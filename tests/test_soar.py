@@ -1,6 +1,6 @@
 """SOAR spilling tests (partitioning/tree_partitioner.py soar_select_kernel).
 
-TPU extension beyond the reference: the reference declares spilling config
+Extension beyond the reference: the reference declares spilling config
 but never implements any spilling (src/config.rs:151-155); this framework
 implements both the threshold rule and SOAR (Sun, Guo & Kumar, NeurIPS
 2023) — orthogonality-amplified secondary assignments.

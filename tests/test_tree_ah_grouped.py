@@ -1,12 +1,16 @@
-"""Grouped MXU tree-AH leaf scoring: grouping math + kernel parity."""
+"""Grouped tree-AH leaf scoring: grouping math + kernel parity (the
+Triton-route kernel in interpret mode against plain formulations)."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from scann_tpu.ops.tree_ah_grouped import (
+    L_TILE,
     group_pairs_by_partition,
-    tree_ah_grouped_scores_pallas,
+    grouped_scores_pallas,
 )
 from scann_tpu.types import MASKED_DISTANCE
 
@@ -37,77 +41,36 @@ def test_grouping_invariants(rng):
 
 
 def _naive_scores(luts, codes, offsets, sizes, slot, q_cap, l_cap):
-    """Score every pair against its partition's codes via direct lookup."""
+    """Score every pair against its partition's codes via direct lookup
+    (codes [N_csr, S] row-major, luts [B*p, S*16])."""
     bp = luts.shape[0]
-    s = codes.shape[0]
+    s = codes.shape[1]
     out = np.full((bp, l_cap), MASKED_DISTANCE, np.float32)
     for i in range(bp):
         g = slot[i] // q_cap
         off, size = offsets[g], sizes[g]
         for l in range(min(size, l_cap)):
-            out[i, l] = sum(luts[i, ss * 16 + int(codes[ss, off + l])]
+            out[i, l] = sum(luts[i, ss * 16 + int(codes[off + l, ss])]
                             for ss in range(s))
     return out
 
 
-@pytest.mark.parametrize("q_cap,l_tile", [(4, 128), (8, 256)])
-def test_kernel_matches_naive(rng, q_cap, l_tile):
-    b, p, t = 6, 3, 5
-    s_pad, c = 32, 16
-    l_cap = 2 * l_tile
+def _grouped_case(rng, q_cap, s, b=6, p=3, t=5, c=16):
+    """Random CSR slab + pairs, grouped as leaf_scores_grouped does."""
+    from scann_tpu.models.tree_x_hybrid import code_slab
+
+    l_cap = 2 * L_TILE
     sizes_np = rng.integers(1, l_cap + 1, size=t).astype(np.int32)
+    sizes_np[0] = 0                       # an empty partition
     aligned = np.zeros(t + 1, np.int64)
     aligned[1:] = np.cumsum(((sizes_np + 127) // 128) * 128)
     n_csr = int(aligned[-1]) + l_cap
-    codes_np = rng.integers(0, c, size=(s_pad, n_csr)).astype(np.uint8)
-
+    codes = rng.integers(0, c, size=(n_csr, s)).astype(np.uint8)
     parts = rng.integers(0, t, size=(b, p)).astype(np.int32)
-    luts_np = rng.normal(size=(b * p, s_pad * c)).astype(np.float32)
-
-    grp_part, slot, ng = group_pairs_by_partition(jnp.asarray(parts), t, q_cap)
-    grp_off = jnp.take(jnp.asarray(aligned[:-1].astype(np.int32)), grp_part)
-    grp_size = jnp.take(jnp.asarray(sizes_np), grp_part)
-
-    pair_of_slot = jnp.zeros((ng * q_cap,), jnp.int32).at[slot].set(
-        jnp.arange(b * p, dtype=jnp.int32))
-    luts_grouped = jnp.take(jnp.asarray(luts_np), pair_of_slot, axis=0)
-
-    scores = tree_ah_grouped_scores_pallas(
-        luts_grouped, jnp.asarray(codes_np), grp_off, grp_size,
-        l_cap=l_cap, l_tile=l_tile, q_cap=q_cap, interpret=True)
-    got = np.asarray(jnp.take(scores, jnp.asarray(slot), axis=0))
-
-    want = _naive_scores(luts_np, codes_np, np.asarray(grp_off),
-                         np.asarray(grp_size), np.asarray(slot), q_cap, l_cap)
-    mask = want < MASKED_DISTANCE / 2
-    assert np.array_equal(mask, got < MASKED_DISTANCE / 2)
-    # bf16 LUT rows in the MXU contraction: per-term error ~2^-8 accumulated
-    # over s_pad subspaces bounds abs error, rel error unbounded near 0
-    np.testing.assert_allclose(got[mask], want[mask], rtol=2e-2, atol=0.1)
-
-
-@pytest.mark.parametrize("s_logical", [7, 8, 25])
-def test_kernel_packed_matches_unpacked(rng, s_logical):
-    """Packed-nibble slab ([S/2] bytes, low-nibble-first) + even-first LUT
-    permutation must score identically to the unpacked u8 slab (same
-    layout the reference packs, lut16.rs:43-61)."""
-    b, p, t = 6, 3, 5
-    c, q_cap, l_tile = 16, 4, 128
-    l_cap = 2 * l_tile
-    # production alignment (models/tree_x_hybrid._csr_state): packed byte
-    # rows align to 8 sublanes for the Mosaic DMA
-    s_pad = 2 * ((((s_logical + 1) // 2) + 7) // 8) * 8
-    sizes_np = rng.integers(1, l_cap + 1, size=t).astype(np.int32)
-    aligned = np.zeros(t + 1, np.int64)
-    aligned[1:] = np.cumsum(((sizes_np + 127) // 128) * 128)
-    n_csr = int(aligned[-1]) + l_cap
-    codes_np = rng.integers(0, c, size=(s_pad, n_csr)).astype(np.uint8)
-    if s_pad != s_logical:
-        codes_np[s_logical:] = 0  # pad subspace, zero LUT row below
-    parts = rng.integers(0, t, size=(b, p)).astype(np.int32)
-    luts_np = rng.normal(size=(b * p, s_pad, c)).astype(np.float32)
-    if s_pad != s_logical:
-        luts_np[:, s_logical:] = 0.0
+    s_pad = s + s % 2
+    luts = rng.normal(size=(b * p, s_pad, c)).astype(np.float32)
+    luts[:, s:] = 0.0                     # pad subspace: zero LUT row
+    luts = jnp.asarray(luts.reshape(b * p, -1)).astype(jnp.bfloat16)
 
     grp_part, slot, ng = group_pairs_by_partition(jnp.asarray(parts), t, q_cap)
     grp_safe = jnp.maximum(grp_part, 0)
@@ -116,172 +79,96 @@ def test_kernel_packed_matches_unpacked(rng, s_logical):
                          jnp.take(jnp.asarray(sizes_np), grp_safe), 0)
     pair_of_slot = jnp.zeros((ng * q_cap,), jnp.int32).at[slot].set(
         jnp.arange(b * p, dtype=jnp.int32))
+    luts3 = jnp.take(luts, pair_of_slot, axis=0).reshape(ng, q_cap, -1)
+    slab = code_slab(codes, "grouped", c)
+    unpacked = np.ascontiguousarray(code_slab(codes, "pairs", c).T)
+    return dict(codes=codes, slab=slab, unpacked=unpacked, luts=luts,
+                luts3=luts3, grp_off=grp_off, grp_size=grp_size, slot=slot,
+                l_cap=l_cap)
 
-    lg = jnp.take(jnp.asarray(luts_np.reshape(b * p, -1)), pair_of_slot,
-                  axis=0)
-    want = np.asarray(jnp.take(tree_ah_grouped_scores_pallas(
-        lg, jnp.asarray(codes_np), grp_off, grp_size,
-        l_cap=l_cap, l_tile=l_tile, q_cap=q_cap, interpret=True),
-        jnp.asarray(slot), axis=0)).astype(np.float32)
 
-    # pack low-nibble-first along S; LUTs to even-first subspace order
-    packed_np = (codes_np[0::2] | (codes_np[1::2] << 4)).astype(np.uint8)
-    luts_ef = np.concatenate([luts_np[:, 0::2], luts_np[:, 1::2]],
-                             axis=1).reshape(b * p, -1)
-    lg_p = jnp.take(jnp.asarray(luts_ef), pair_of_slot, axis=0)
-    got = np.asarray(jnp.take(tree_ah_grouped_scores_pallas(
-        lg_p, jnp.asarray(packed_np), grp_off, grp_size,
-        l_cap=l_cap, l_tile=l_tile, q_cap=q_cap, interpret=True,
-        packed=True),
-        jnp.asarray(slot), axis=0)).astype(np.float32)
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("q_cap", [8, 16])
+def test_kernel_matches_naive(rng, q_cap, packed):
+    """Kernel scores vs the f32 gather-sum of the same bf16 LUTs, within
+    bf16 output rounding (rtol 2^-7); masked exactly beyond each size."""
+    case = _grouped_case(rng, q_cap, s=8)
+    slab = case["slab"] if packed else case["unpacked"]
+    assert slab.shape[0] == (4 if packed else 8)
+    scores = grouped_scores_pallas(
+        case["luts3"], jnp.asarray(slab), case["grp_off"], case["grp_size"],
+        l_cap=case["l_cap"], packed=packed, interpret=True)
+    assert scores.shape == (case["luts3"].shape[0], q_cap, case["l_cap"])
+    got = np.asarray(jnp.take(scores.reshape(-1, case["l_cap"]),
+                              case["slot"], axis=0)).astype(np.float32)
+    want = _naive_scores(np.asarray(case["luts"].astype(jnp.float32)),
+                         case["codes"], np.asarray(case["grp_off"]),
+                         np.asarray(case["grp_size"]),
+                         np.asarray(case["slot"]), q_cap, case["l_cap"])
+    mask = want < MASKED_DISTANCE / 2
+    assert np.array_equal(mask, got < MASKED_DISTANCE / 2)
+    np.testing.assert_allclose(got[mask], want[mask], rtol=2 ** -7,
+                               atol=1e-2)
 
+
+@pytest.mark.parametrize("s_logical", [7, 8, 25])
+def test_kernel_packed_matches_unpacked(rng, s_logical):
+    """Packed-nibble slab ([S/2] bytes, low-nibble-first, the reference
+    layout lut16.rs:43-61) scores identically to the unpacked u8 slab,
+    odd subspace counts included (code_slab pads S to even)."""
+    case = _grouped_case(rng, 16, s=s_logical)
+    kw = dict(l_cap=case["l_cap"], interpret=True)
+    want = np.asarray(grouped_scores_pallas(
+        case["luts3"], jnp.asarray(case["unpacked"]), case["grp_off"],
+        case["grp_size"], **kw)).astype(np.float32)
+    got = np.asarray(grouped_scores_pallas(
+        case["luts3"], jnp.asarray(case["slab"]), case["grp_off"],
+        case["grp_size"], packed=True, **kw)).astype(np.float32)
     mask = want < MASKED_DISTANCE / 2
     assert np.array_equal(mask, got < MASKED_DISTANCE / 2)
     np.testing.assert_allclose(got[mask], want[mask], rtol=1e-3, atol=1e-3)
 
 
-def test_kernel_int8_luts_matches_float(rng):
-    """int8-LUT path: i16 scores map back to real units by the documented
-    affine; must match the float-LUT kernel within one quantization step
-    per subspace."""
-    b, p, t = 6, 3, 5
-    s_pad, c = 32, 16
-    q_cap, l_tile = 4, 128
-    l_cap = 2 * l_tile
-    sizes_np = rng.integers(1, l_cap + 1, size=t).astype(np.int32)
-    aligned = np.zeros(t + 1, np.int64)
-    aligned[1:] = np.cumsum(((sizes_np + 127) // 128) * 128)
-    n_csr = int(aligned[-1]) + l_cap
-    codes_np = rng.integers(0, c, size=(s_pad, n_csr)).astype(np.uint8)
-    parts = rng.integers(0, t, size=(b, p)).astype(np.int32)
-    luts_np = rng.normal(size=(b * p, s_pad * c)).astype(np.float32) * 3
-
-    grp_part, slot, ng = group_pairs_by_partition(jnp.asarray(parts), t, q_cap)
-    grp_safe = jnp.maximum(grp_part, 0)
-    grp_off = jnp.take(jnp.asarray(aligned[:-1].astype(np.int32)), grp_safe)
-    grp_size = jnp.where(grp_part >= 0,
-                         jnp.take(jnp.asarray(sizes_np), grp_safe), 0)
-    pair_of_slot = jnp.zeros((ng * q_cap,), jnp.int32).at[slot].set(
-        jnp.arange(b * p, dtype=jnp.int32))
-
-    # float reference
-    lg_f = jnp.take(jnp.asarray(luts_np), pair_of_slot, axis=0)
-    want = np.asarray(jnp.take(tree_ah_grouped_scores_pallas(
-        lg_f, jnp.asarray(codes_np), grp_off, grp_size,
-        l_cap=l_cap, l_tile=l_tile, q_cap=q_cap, interpret=True),
-        jnp.asarray(slot), axis=0)).astype(np.float32)
-
-    # int8 path + affine recovery
-    lo = luts_np.min()
-    scale = max(luts_np.max() - lo, 1e-6) / 255.0
-    luts_i8 = (np.clip(np.round((luts_np - lo) / scale), 0, 255)
-               - 128).astype(np.int8)
-    lg_q = jnp.take(jnp.asarray(luts_i8), pair_of_slot, axis=0)
-    from scann_tpu.ops.tree_ah_grouped import I16_MASK
-
-    raw = np.asarray(jnp.take(tree_ah_grouped_scores_pallas(
-        lg_q, jnp.asarray(codes_np), grp_off, grp_size,
-        l_cap=l_cap, l_tile=l_tile, q_cap=q_cap, interpret=True),
-        jnp.asarray(slot), axis=0))
-    got = scale * (raw.astype(np.float32) + 128.0 * s_pad) + s_pad * lo
-
-    mask = want < MASKED_DISTANCE / 2
-    assert np.array_equal(mask, raw != I16_MASK)
-    np.testing.assert_allclose(got[mask], want[mask],
-                               atol=scale * s_pad + 0.2, rtol=0.05)
-
-
-def test_search_grouped_int8_end_to_end(rng):
-    """Full grouped pipeline (interpret) with int8 LUTs vs exact GT."""
-    from scann_tpu.data.dataset import DenseDataset
-    from scann_tpu.hashes.hasher import AsymmetricHasherConfig
-    from scann_tpu.models.brute_force import BruteForceSearcher
-    from scann_tpu.models.tree_x_hybrid import (
-        TreeXHybridConfig, TreeXHybridSearcher, tree_ah_search_grouped)
-    from scann_tpu.ops.distances import DistanceMeasure
-
-    centers = rng.normal(size=(12, 16)).astype(np.float32) * 3
-    db = np.concatenate(
-        [c + rng.normal(size=(120, 16)).astype(np.float32) for c in centers])
-    rng.shuffle(db)
-    q = db[rng.integers(0, len(db), size=16)] + 0.05 * rng.normal(
-        size=(16, 16)).astype(np.float32)
-    ds = DenseDataset(db)
-    gt, _ = BruteForceSearcher(ds).search_batched_arrays(q, 10)
-
-    s = TreeXHybridSearcher(TreeXHybridConfig(
-        num_partitions=16, partitions_to_search=8,
-        hash_config=AsymmetricHasherConfig(
-            num_codes=16, num_subspaces=4, seed=0, max_iterations=6),
-    )).build(ds)
-    db_d, norms, n_valid = s._device_state()
-    _, codes_csr, csr_offsets, part_sizes, perm, l_cap = s._csr_state()
+@pytest.mark.parametrize("num_codes", [8, 16, 32])
+def test_leaf_scores_grouped_matches_pairs(rng, num_codes):
+    """The grouped kernel wrapper (interpret) vs the per-pair gather path
+    the CPU serves on a built index: same leaf-major candidate order and
+    CSR rows, scores equal within bf16 output rounding. num_codes 8 pads
+    the LUT to 16 columns; 32 serves an unpacked slab."""
     import jax
 
-    dists, idx = tree_ah_search_grouped(
-        db_d, norms, s.partitioner.centers_device(), codes_csr, csr_offsets,
-        part_sizes, perm, s.codebook.centroids_device(), jnp.asarray(q),
-        jnp.int32(n_valid), None, jnp.float32(np.inf), jnp.float32(np.inf),
-        p=8, pre_k=100, k=10, l_cap=l_cap, use_residuals=True,
-        measure=DistanceMeasure.SQUARED_L2, multiplicity=1,
-        approx_select_min=10**9, q_cap=4, l_tile=128, interpret=True,
-        int8_luts=True)
-    recall = np.mean([len(set(a) & set(g)) / 10
-                      for a, g in zip(np.asarray(idx), np.asarray(gt))])
-    assert recall >= 0.9, recall
-
-
-def test_search_grouped_packed_int8_luts(rng):
-    """packed-nibble slab + int8-quantized LUTs compose: the int8 MXU
-    contraction consumes the unpacked codes and the affine restores real
-    units (both HBM levers active at once)."""
     from scann_tpu.data.dataset import DenseDataset
     from scann_tpu.hashes.hasher import AsymmetricHasherConfig
-    from scann_tpu.models.brute_force import BruteForceSearcher
-    from scann_tpu.models.tree_x_hybrid import (
-        TreeXHybridConfig, TreeXHybridSearcher, tree_ah_search_grouped)
-    from scann_tpu.ops.distances import DistanceMeasure
+    from scann_tpu.models import tree_x_hybrid as tx
 
-    centers = rng.normal(size=(12, 16)).astype(np.float32) * 3
-    db = np.concatenate(
-        [c + rng.normal(size=(120, 16)).astype(np.float32) for c in centers])
-    rng.shuffle(db)
-    q = db[rng.integers(0, len(db), size=16)] + 0.05 * rng.normal(
-        size=(16, 16)).astype(np.float32)
-    ds = DenseDataset(db)
-    gt, _ = BruteForceSearcher(ds).search_batched_arrays(q, 10)
-
-    s = TreeXHybridSearcher(TreeXHybridConfig(
-        num_partitions=16, partitions_to_search=8,
+    db = rng.normal(size=(900, 15)).astype(np.float32)
+    q = jnp.asarray(rng.normal(size=(12, 15)).astype(np.float32))
+    s = tx.TreeXHybridSearcher(tx.TreeXHybridConfig(
+        num_partitions=8, partitions_to_search=3,
         hash_config=AsymmetricHasherConfig(
-            num_codes=16, num_subspaces=4, seed=0, max_iterations=6),
-    )).build(ds)
-    db_d, norms, n_valid = s._device_state()
-
-    # build the packed transposed slab the TPU path would serve
-    import scann_tpu.models.tree_x_hybrid as tx
-
-    orig = tx.TreeXHybridSearcher._use_grouped_pallas
-    tx.TreeXHybridSearcher._use_grouped_pallas = lambda self: True
-    try:
-        s._csr_cache = None
-        _, codes_csr, csr_offsets, part_sizes, perm, l_cap = s._csr_state()
-        assert s._pack_codes()
-    finally:
-        tx.TreeXHybridSearcher._use_grouped_pallas = orig
-
-    dists, idx = tree_ah_search_grouped(
-        db_d, norms, s.partitioner.centers_device(), codes_csr, csr_offsets,
-        part_sizes, perm, s.codebook.centroids_device(), jnp.asarray(q),
-        jnp.int32(n_valid), None, jnp.float32(np.inf), jnp.float32(np.inf),
-        p=8, pre_k=100, k=10, l_cap=l_cap, use_residuals=True,
-        measure=DistanceMeasure.SQUARED_L2, multiplicity=1,
-        interpret=True, int8_luts=True, packed=True)
-    idx = np.asarray(idx)
-    rec = np.mean([len(set(a.tolist()) & set(g.tolist())) / 10
-                   for a, g in zip(idx, np.asarray(gt))])
-    assert rec >= 0.9
-    de = ((q[:, None, :] - db[idx.clip(0)]) ** 2).sum(-1)
-    m = idx >= 0
-    np.testing.assert_allclose(np.asarray(dists)[m], de[m],
-                               rtol=1e-3, atol=1e-3)
+            num_codes=num_codes, num_subspaces=5, seed=0, max_iterations=4),
+    )).build(DenseDataset(db))
+    rows, offs, sizes, perm, l_cap = s._csr_state()      # "pairs" slab
+    assert s._leaf_scorer() == "pairs"                     # CPU platform
+    s._leaf_scorer = lambda: "grouped"
+    s._csr_cache = None
+    slab = s._csr_state()[0]
+    assert slab.shape[0] == (3 if num_codes <= 16 else 6)
+    cent = s.partitioner.centers_device()
+    cb = s.codebook.centroids_device()
+    parts = tx._select_partitions(cent, q, p=3, approx_min=10 ** 9)
+    luts = tx._residual_luts(q, cent, parts, cb, s_pad=6, use_residuals=True)
+    got, rows_g = tx.leaf_scores_grouped(luts, parts, slab, offs, sizes, p=3,
+                                         l_cap=l_cap, c=num_codes,
+                                         interpret=True)
+    lb = luts.astype(jnp.bfloat16).astype(jnp.float32)
+    want, rows_x = jax.jit(functools.partial(
+        tx.leaf_scores_xla, p=3, l_cap=l_cap, c=num_codes))(
+            lb, parts, rows, offs, sizes)
+    np.testing.assert_array_equal(np.asarray(rows_g), np.asarray(rows_x))
+    got = np.asarray(got.astype(jnp.float32))
+    want = np.asarray(want)
+    mask = want < MASKED_DISTANCE / 2
+    assert np.array_equal(mask, got < MASKED_DISTANCE / 2)
+    np.testing.assert_allclose(got[mask], want[mask], rtol=2 ** -7,
+                               atol=1e-2)
